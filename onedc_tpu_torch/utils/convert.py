@@ -1,0 +1,67 @@
+"""Carry a JAX parameter tree across to the port.
+
+Counterpart, in the inverse direction, of ``onedc_tpu/utils/port_torch.py``.
+The port's modules carry the flax module names, so a flax path maps
+mechanically onto a state-dict key:
+
+    unet/down_blocks_0/resnets_0/conv1/kernel
+        -> unet.down_blocks_0.resnets_0.conv1.weight
+
+Leaves convert as: conv kernel HWIO -> OIHW (a depthwise (3, 3, 1, C)
+kernel becomes (C, 1, 3, 3) by the same transpose); Dense kernel
+(in, out) -> (out, in); GroupNorm / LayerNorm ``scale`` -> ``weight``;
+``bias`` as is; any other leaf raises. ``OneDC.load_state_dict(...,
+strict=True)`` then raises on any key left over on either side. The
+subtrees of the encode side, which this decode-only port does not hold
+yet, are named in ``ENCODE_SIDE`` and skipped.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+ENCODE_SIDE = ("vae/encoder/", "codec/enc/", "codec/hyper_enc/")
+
+
+def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + "/")
+        else:
+            yield path, v
+
+
+def convert_leaf(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
+    """One flax leaf -> (state-dict key, array in torch layout)."""
+    *mods, leaf = path.split("/")
+    if leaf == "kernel":
+        if value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
+        elif value.ndim == 2:
+            value = value.T
+        else:
+            raise ValueError(f"{path}: kernel of rank {value.ndim}")
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "weight"
+    elif leaf != "bias":
+        raise ValueError(f"{path}: unknown leaf kind {leaf!r}")
+    return ".".join(mods + [leaf]), np.ascontiguousarray(value)
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX param tree (nested dicts of arrays, with or without the top
+    ``params`` key) -> f32 state dict."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        if path.startswith(ENCODE_SIDE):
+            continue
+        key, arr = convert_leaf(path, np.asarray(value, np.float32))
+        out[key] = torch.from_numpy(arr)
+    return out

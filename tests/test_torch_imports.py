@@ -1,0 +1,64 @@
+"""The port stands alone: importing it (or chip_smoke.py) loads neither
+jax, flax nor onedc_tpu; its entry points need the card unless told
+otherwise."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "onedc_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "onedc_tpu")
+
+
+def test_import_loads_no_jax_and_no_onedc_tpu():
+    code = (
+        "import pkgutil, sys\n"
+        "import onedc_tpu_torch\n"
+        "for m in pkgutil.walk_packages(onedc_tpu_torch.__path__,"
+        " 'onedc_tpu_torch.'):\n"
+        "    __import__(m.name)\n"
+        "import chip_smoke\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print(len([m for m in sys.modules if m.startswith("
+        "'onedc_tpu_torch.')]), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 20
+    assert bad.strip() == "[]"
+
+
+def test_source_imports_nothing_of_the_jax_package():
+    pattern = re.compile(
+        r"^\s*(from|import)\s+(jax|jaxlib|flax|onedc_tpu)(\.|\s|$)", re.M)
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 20
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def test_runtime_needs_the_card_unless_told_otherwise():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from __graft_entry__ import _tiny_cfg
+    from onedc_tpu_torch.models.onedc import OneDC, OneDCRuntime
+    model = OneDC(**_tiny_cfg())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OneDCRuntime(model)
+    assert OneDCRuntime(model, device="cpu").device == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
