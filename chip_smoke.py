@@ -6,17 +6,29 @@
 2. Builds the CUDA kernels (nvcc, one process per source) and the rANS
    coder (g++) from the sources in this checkout.
 3. Kernel phase: each kernel against its plain PyTorch version at the
-   shapes the decode path gives it, with the tolerance stated below; CUDA
-   event times of the kernel, the plain version and one PyTorch library
-   call for the same function; the card's bound for the same work.
-4. Main path: the full-width OneDC (lambda family: codec 512/128, FSQ
-   [4]*7, SD1.5 UNet, SD2.1 VAE decoder) on weights drawn from a seeded
+   shapes the decode path (bf16) and the training step (f32) give it, with
+   the tolerance stated below: K1 (flash attention forward), K1-bwd (its
+   backward), K2 (GN-affine + SiLU + conv3x3) and K3 (conv3x3, K2's input
+   gradient), and K2's autograd backward against autograd of its plain
+   version; CUDA event times of the kernel, the plain version and one
+   PyTorch library call for the same function; the card's bound for the
+   same work.
+4. Decode path: the full-width OneDC (lambda family: codec 512/128, FSQ
+   [4]*7, SD1.5 UNet, SD2.1 VAE) on weights drawn from a seeded
    generator, in bf16. Writes two 768x768 streams and one 512x768 stream
    with the port's own programs (``write_synthetic_stream``), decodes each
    with ``OneDCRuntime.decode`` and all three with ``decode_batch``, and
    checks symbols, y_hat, images and kernel launch counts, and that a row
    of a batch decodes the same whatever stream shares its batch.
-5. Prints ``{"kernels": [...]}`` and, last, the device line.
+5. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
+   overrides in ``TRAIN_OVERRIDES``, full width, f32, random seeded
+   weights, seeded synthetic 1024x1024 images: two steps at 512x512
+   (batch 2) and one at 768x768 (batch 1). Checks finite metrics, the
+   frozen VAE bit-identical, the trainable parameters unchanged by the
+   first step (lr 0) and changed by the next, every kernel's launches per
+   step, and a finite non-zero gradient on the first UNet ``attn1.to_q``
+   (it arrives only through K1-bwd and K3).
+6. Prints ``{"kernels": [...]}``, the card line and, last, the device line.
 
 Any failed check raises, and the script exits non-zero.
 """
@@ -32,19 +44,33 @@ import time
 import numpy as np
 import torch
 
-# bf16 limits of the kernel phase, against the plain version's output ref
-# on the same inputs, with no absolute floor:
+# Limits of the kernel phase, against the plain version's output ref on
+# the same inputs, with no absolute floor:
 #   ||out - ref|| <= REL_L2_TOL * ||ref||  and
 #   max|out - ref| <= MAX_TOL * max|ref|.
-# Both sides round their output to bf16 (at most 2^-8 relative, so one ulp
-# at the largest magnitude is <= 0.8 % of it); K1 rounds the probabilities
-# to bf16 before P.V, K2 evaluates the SiLU with the fast intrinsics
-# (__expf, __fdividef), and both sum in f32 in another order than the plain
-# version. Each check also shows its power: the plain version with one
-# 64-key tile left out (K1) or one 32-channel input chunk left out (K2),
-# the work one block iteration does, must fail it.
+# bf16: both sides round their output to bf16 (at most 2^-8 relative, so
+# one ulp at the largest magnitude is <= 0.8 % of it). f32: the kernels
+# round their operands to bf16 in shared memory (2^-9 relative each), the
+# plain version computes in f32. Besides, K1 and K1-bwd round the
+# probabilities (and dS) to bf16 before their second products, K2
+# evaluates the SiLU with the fast intrinsics (__expf, __fdividef), and all
+# sum in f32 in another order than the plain version. Each check also
+# shows its power: the plain version with one block iteration's work left
+# out (one 64-key tile for K1 and K1-bwd's dQ, one 64-query tile for
+# K1-bwd's dK and dV, one 32-channel input chunk for K2 and K3) must fail
+# it.
 REL_L2_TOL = 1e-2
 MAX_TOL = 2e-2
+# K1's row log-sum-exp against the plain one, absolute (it enters exp()
+# in the backward, so an absolute error e scales P by exp(e)), as the root
+# mean square over rows and the largest over rows. The scores come from
+# bf16-rounded operands: a row dominated by a few large scores carries
+# their rounding error (largest 1.07e-2, at D = 8), the rest average it
+# out (root mean square 3-10e-4 for q, k rounded to bf16, computed on a
+# CPU). Leaving out one 64-key tile moves every row by about 64/N, one
+# way: root mean square 7.0e-3 at N = 9216, and it must fail.
+LSE_RMS_TOL = 3e-3
+LSE_MAX_TOL = 2e-2
 # decode_batch against the single decodes. Within one bucket, each row must
 # depend on its own stream only: a row decodes bit-identically whatever
 # stream shares its batch (checked exactly). Against a batch-1 decode a row
@@ -83,6 +109,58 @@ K2_SHAPES = {"768x768": [((1, 96, 96, 512, 512), 10),
              "batch2": [((2, 96, 96, 512, 512), 10)]}
 K1_PER_CALL = {"768x768": 10, "512x768": 5}
 K2_PER_CALL = {"768x768": 28, "512x768": 28}
+
+# shapes the training step gives the kernels (f32), with their launches per
+# step: "train512" is a 512x512 step of batch 2, "train768" a 768x768 step
+# of batch 1. K1: the SD UNet's attn1 at /8 (and /16 at 768), the encoder
+# UNet's /16 attention (64 heads of 8) at 768; K1-bwd runs once per K1
+# launch. K2: the VAE encoder's 20 resnet convs (forward only: the encoder
+# is frozen and detached) and the decoder's 28; K3: the input gradient of
+# each of the decoder's 28, (B, H, W, Cout -> Cin) of its K2 conv.
+K1_TRAIN_SHAPES = {"train512": [((2, 4096, 8, 40), 5)],
+                   "train768": [((1, 9216, 8, 40), 5), ((1, 2304, 8, 80), 5),
+                                ((1, 2304, 64, 8), 2)]}
+K2_TRAIN_SHAPES = {"train512": [((2, 64, 64, 512, 512), 18),
+                                ((2, 128, 128, 512, 512), 9),
+                                ((2, 128, 128, 256, 512), 1),
+                                ((2, 256, 256, 512, 256), 1),
+                                ((2, 256, 256, 256, 256), 8),
+                                ((2, 256, 256, 128, 256), 1),
+                                ((2, 512, 512, 256, 128), 1),
+                                ((2, 512, 512, 128, 128), 9)],
+                   "train768": [((1, 96, 96, 512, 512), 18),
+                                ((1, 192, 192, 512, 512), 9),
+                                ((1, 192, 192, 256, 512), 1),
+                                ((1, 384, 384, 512, 256), 1),
+                                ((1, 384, 384, 256, 256), 8),
+                                ((1, 384, 384, 128, 256), 1),
+                                ((1, 768, 768, 256, 128), 1),
+                                ((1, 768, 768, 128, 128), 9)]}
+K3_TRAIN_SHAPES = {"train512": [((2, 64, 64, 512, 512), 10),
+                                ((2, 128, 128, 512, 512), 6),
+                                ((2, 256, 256, 256, 512), 1),
+                                ((2, 256, 256, 256, 256), 5),
+                                ((2, 512, 512, 128, 256), 1),
+                                ((2, 512, 512, 128, 128), 5)],
+                   "train768": [((1, 96, 96, 512, 512), 10),
+                                ((1, 192, 192, 512, 512), 6),
+                                ((1, 384, 384, 256, 512), 1),
+                                ((1, 384, 384, 256, 256), 5),
+                                ((1, 768, 768, 128, 256), 1),
+                                ((1, 768, 768, 128, 128), 5)]}
+# K2's autograd backward (recompute + K3 + torch dw), one shape per level
+K2_BWD_SHAPES = [(2, 64, 64, 512, 512), (2, 128, 128, 512, 512),
+                 (2, 256, 256, 256, 256), (2, 512, 512, 128, 128)]
+# launches per training step: (K1, K1-bwd, K2, K3)
+TRAIN_PER_STEP = {512: (5, 5, 48, 28), 768: (12, 12, 48, 28)}
+# configs/train_stage1.yaml with these overrides (dotted keys)
+TRAIN_OVERRIDES = {"optimizer": "adamw", "fsdp": False,
+                   "model.use_codeformer": False, "frozen": ["vae"],
+                   "allow_no_lpips": True, "batch_size": 2,
+                   "resolutions": [512, 768], "batch_scales": [1.0, 0.5],
+                   "warmup_steps": 2}
+FIRST_ATTN1 = ("unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1."
+               "to_q.weight")
 
 
 def card_line() -> str:
@@ -294,29 +372,244 @@ def check_k2(gen: torch.Generator):
     return rows
 
 
-def summarize(name, source, replaces, rows, launches):
-    """One kernel's line entry: the times of one 768x768 decode call
-    (sum over its shapes of count x per-launch time); ``launches`` is the
-    count over the whole main-path run."""
-    main = [r for r in rows if r["bucket"] == "768x768"]
+def lse_errs(lse, ref):
+    """(root mean square, largest) of ``lse - ref`` over rows."""
+    diff = (lse - ref).double()
+    return diff.pow(2).mean().sqrt().item(), diff.abs().max().item()
 
-    def total(key):
-        return sum(r["count"] * r[key] for r in main)
 
+def sdpa_bwd_timer(q, k, v, dout, scale):
+    """A timed call of SDPA's backward alone (library yardstick of K1-bwd):
+    the graph of one forward, kept for repeated gradients."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                           scale=scale)
+    dot = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def check_k1_train(gen: torch.Generator):
+    """K1 (f32, with the row log-sum-exp) and K1-bwd at the training
+    shapes: (forward rows, backward rows)."""
+    from onedc_tpu_torch.ops import flash_attention as k1
+
+    fwd_rows, bwd_rows = [], []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for bucket, shapes in K1_TRAIN_SHAPES.items():
+        for shape, count in shapes:
+            b, n, h, d = shape
+            q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                             for _ in range(4))
+            scale = d ** -0.5
+            tag = f"{bucket} {shape}"
+            out, lse = k1.flash_attention_cuda(q, k, v, scale, with_lse=True)
+            out_plain = k1.attention_plain(q, k, v, scale)
+            errs = compare(f"K1 f32 {tag}", out, out_plain,
+                           k1.attention_plain(q, k[:, 64:], v[:, 64:], scale))
+            lse_plain = k1.attention_lse_plain(q, k, scale)
+            lse_rms, lse_max = lse_errs(lse, lse_plain)
+            m_rms, m_max = lse_errs(
+                k1.attention_lse_plain(q, k[:, 64:], scale), lse_plain)
+            print(f"K1 f32 {tag}: lse - plain: root mean square "
+                  f"{lse_rms:.3e} (tol {LSE_RMS_TOL}), max {lse_max:.3e} (tol "
+                  f"{LSE_MAX_TOL}); one block step left out: {m_rms:.3e}, "
+                  f"{m_max:.3e}", flush=True)
+            if not (lse_rms <= LSE_RMS_TOL and lse_max <= LSE_MAX_TOL):
+                raise AssertionError(f"K1 {tag}: lse disagrees")
+            if m_rms <= LSE_RMS_TOL and m_max <= LSE_MAX_TOL:
+                raise AssertionError(f"K1 {tag}: the lse limits cannot tell a "
+                                     f"kernel that skips one block step")
+            errs.update(lse_rms_err=lse_rms, lse_max_err=lse_max)
+            ms = cuda_ms(lambda: k1.flash_attention_cuda(q, k, v, scale,
+                                                         with_lse=True))
+            plain = cuda_ms(lambda: k1.attention_plain(q, k, v, scale),
+                            iters=3)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
+            del qt, kt, vt
+            bnd, by = bound_ms(4.0 * b * h * n * n * d,
+                               4 * b * n * h * d * 4 + b * h * n * 4)
+            fwd_rows.append(dict(bucket=bucket, shape=list(shape),
+                                 count=count, **errs, ms=ms, plain_ms=plain,
+                                 library_ms=lib, bound_ms=bnd, bound_by=by))
+            print(f"K1 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
+                  f"{plain:.4f} sdpa {lib:.4f} bound {bnd:.4f} ({by})",
+                  flush=True)
+
+            # the kernel takes the forward kernel's out and lse; the plain
+            # backward the plain ones, so a wrong lse shows here too
+            di = (out * dout).sum(-1).transpose(1, 2).contiguous()
+            grads = k1.flash_attention_bwd_cuda(q, k, v, dout, lse, di, scale)
+            refs = k1.attention_bwd_plain(q, k, v, out_plain, dout, lse_plain,
+                                          scale)
+            skip_key = k1.attention_bwd_plain(q, k[:, 64:], v[:, 64:],
+                                              out_plain, dout, lse_plain,
+                                              scale)
+            skip_query = k1.attention_bwd_plain(
+                q[:, 64:], k, v, out_plain[:, 64:], dout[:, 64:],
+                lse_plain[..., 64:], scale)
+            mutants = (skip_key[0], skip_query[1], skip_query[2])
+            all_errs = [compare(f"K1-bwd {name} {tag}", g, r, m)
+                        for name, g, r, m in zip(("dQ", "dK", "dV"), grads,
+                                                 refs, mutants)]
+            del grads, refs, skip_key, skip_query, mutants
+            torch.cuda.empty_cache()
+            ms = cuda_ms(lambda: k1.flash_attention_bwd_cuda(
+                q, k, v, dout, lse, di, scale))
+            plain = cuda_ms(lambda: k1.attention_bwd_plain(
+                q, k, v, out, dout, lse, scale), iters=2, warmup=1)
+            lib = cuda_ms(sdpa_bwd_timer(q, k, v, dout, scale))
+            bnd, by = bound_ms(10.0 * b * h * n * n * d,
+                               7 * b * n * h * d * 4 + 2 * b * h * n * 4)
+            bwd_rows.append(dict(
+                bucket=bucket, shape=list(shape), count=count,
+                max_abs_err=max(e["max_abs_err"] for e in all_errs),
+                rel_l2_err=max(e["rel_l2_err"] for e in all_errs),
+                rel_max_err=max(e["rel_max_err"] for e in all_errs),
+                mutant_rel_l2=min(e["mutant_rel_l2"] for e in all_errs),
+                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                bound_by=by))
+            print(f"K1-bwd {tag} x{count}: kernel {ms:.4f} ms plain "
+                  f"{plain:.4f} sdpa-bwd {lib:.4f} bound {bnd:.4f} ({by})",
+                  flush=True)
+            del q, k, v, dout, out, lse, di, out_plain, lse_plain
+            torch.cuda.empty_cache()
+    return fwd_rows, bwd_rows
+
+
+def _conv_inputs(gen, b, hh, ww, cin, cout, dtype=torch.float32):
+    x = torch.randn((b, hh, ww, cin), generator=gen, device="cuda").to(dtype)
+    mul = 1 + 0.1 * torch.randn((b, cin), generator=gen, device="cuda")
+    add = 0.1 * torch.randn((b, cin), generator=gen, device="cuda")
+    w = (torch.randn((3, 3, cin, cout), generator=gen, device="cuda")
+         / (9 * cin) ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn((cout,), generator=gen, device="cuda")
+            ).to(dtype)
+    return x, mul, add, w, bias
+
+
+def _conv_bound(b, hh, ww, cin, cout, itemsize, affine):
+    nbytes = (b * hh * ww * (cin + cout) * itemsize + 9 * cin * cout * itemsize
+              + (2 * b * cin * 4 + cout * itemsize if affine else 0))
+    return bound_ms(2.0 * b * hh * ww * cin * cout * 9, nbytes)
+
+
+def check_k2_k3_train(gen: torch.Generator):
+    """K2 and K3 in f32 at the training shapes, and K2's autograd backward
+    against autograd of its plain version: (K2 rows, K3 rows)."""
+    from onedc_tpu_torch.ops import conv3x3 as k2
+
+    conv = torch.nn.functional.conv2d
+    k2_rows, k3_rows = [], []
+    for bucket, shapes in K2_TRAIN_SHAPES.items():
+        for shape, count in shapes:
+            x, mul, add, w, bias = _conv_inputs(gen, *shape)
+            tag = f"{bucket} {shape}"
+            w_skip = w.clone()
+            w_skip[:, :, :k2.CIN_MULTIPLE] = 0  # one input chunk left out
+            errs = compare(
+                f"K2 f32 {tag}", k2.affine_silu_conv3x3_cuda(x, mul, add, w,
+                                                             bias),
+                k2.affine_silu_conv3x3_plain(x, mul, add, w, bias),
+                k2.affine_silu_conv3x3_plain(x, mul, add, w_skip, bias))
+            del w_skip
+            t = torch.nn.functional.silu(
+                x * mul[:, None, None, :] + add[:, None, None, :]
+            ).permute(0, 3, 1, 2)  # channels_last NCHW
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            ms = cuda_ms(lambda: k2.affine_silu_conv3x3_cuda(x, mul, add, w,
+                                                             bias))
+            plain = cuda_ms(lambda: k2.affine_silu_conv3x3_plain(
+                x, mul, add, w, bias), iters=3)
+            lib = cuda_ms(lambda: conv(t, w_oihw, bias, padding=1))
+            bnd, by = _conv_bound(*shape, 4, True)
+            k2_rows.append(dict(bucket=bucket, shape=list(shape), count=count,
+                                **errs, ms=ms, plain_ms=plain,
+                                library_ms=lib, bound_ms=bnd, bound_by=by))
+            print(f"K2 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
+                  f"{plain:.4f} cudnn {lib:.4f} bound {bnd:.4f} ({by})",
+                  flush=True)
+            del x, mul, add, w, bias, t, w_oihw
+    for bucket, shapes in K3_TRAIN_SHAPES.items():
+        for shape, count in shapes:
+            x, _, _, w, _ = _conv_inputs(gen, *shape)
+            tag = f"{bucket} {shape}"
+            w_skip = w.clone()
+            w_skip[:, :, :k2.CIN_MULTIPLE] = 0
+            errs = compare(f"K3 f32 {tag}", k2.conv3x3_cuda(x, w),
+                           k2.conv3x3_plain(x, w), k2.conv3x3_plain(x, w_skip))
+            del w_skip
+            x_cl = x.permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            ms = cuda_ms(lambda: k2.conv3x3_cuda(x, w))
+            plain = cuda_ms(lambda: k2.conv3x3_plain(x, w), iters=3)
+            lib = cuda_ms(lambda: conv(x_cl, w_oihw, padding=1))
+            bnd, by = _conv_bound(*shape, 4, False)
+            k3_rows.append(dict(bucket=bucket, shape=list(shape), count=count,
+                                **errs, ms=ms, plain_ms=plain,
+                                library_ms=lib, bound_ms=bnd, bound_by=by))
+            print(f"K3 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
+                  f"{plain:.4f} cudnn {lib:.4f} bound {bnd:.4f} ({by})",
+                  flush=True)
+            del x, w, x_cl, w_oihw
+    names = ("dx", "dmul", "dadd", "dw", "dbias")
+    for shape in K2_BWD_SHAPES:
+        inputs = [t.requires_grad_() for t in _conv_inputs(gen, *shape)]
+        g = torch.randn(shape[:3] + shape[4:], generator=gen, device="cuda")
+        got = torch.autograd.grad(k2.affine_silu_conv3x3(*inputs), inputs, g)
+        want = torch.autograd.grad(k2.affine_silu_conv3x3_plain(*inputs),
+                                   inputs, g)
+        for name, a, r in zip(names, got, want):
+            diff = (a - r).float()
+            rel_l2 = (diff.norm() / r.norm()).item()
+            rel_max = (diff.abs().max() / r.abs().max()).item()
+            print(f"K2 autograd {name} {shape}: relative L2 {rel_l2:.3e}, "
+                  f"max err {rel_max:.3e} of max|ref|", flush=True)
+            if not (rel_l2 <= REL_L2_TOL and rel_max <= MAX_TOL):
+                raise AssertionError(f"K2 backward {name} {shape} disagrees "
+                                     f"with autograd of the plain version")
+        del inputs, g, got, want
+    torch.cuda.empty_cache()
+    return k2_rows, k3_rows
+
+
+def summarize(name, source, replaces, rows, launches, main_bucket):
+    """One kernel's line entry: ``ms`` etc. are the times of one call of
+    ``main_bucket`` (a 768x768 decode, or a 512x512 training step of batch
+    2): the sum over its shapes of count x per-launch time. ``launches``
+    counts the launches of every main-path run (``launches_by_path``)."""
+
+    def total(key, bucket):
+        return sum(r["count"] * r[key] for r in rows if r["bucket"] == bucket)
+
+    buckets = sorted({r["bucket"] for r in rows})
+    main = [r for r in rows if r["bucket"] == main_bucket]
     ops_share = sum(r["count"] * r["bound_ms"] for r in main
                     if r["bound_by"] == "operations")
     return {
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches,
+        "replaces": replaces, "launches": sum(launches.values()),
+        "launches_by_path": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "rel_l2_err": max(r["rel_l2_err"] for r in rows),
         "tolerance": {"rel_l2": REL_L2_TOL, "max_of_max_ref": MAX_TOL},
-        "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": ("operations" if ops_share >= total("bound_ms") / 2
+        "ms": total("ms", main_bucket),
+        "plain_ms": total("plain_ms", main_bucket),
+        "bound_ms": total("bound_ms", main_bucket),
+        "bound_by": ("operations"
+                     if ops_share >= total("bound_ms", main_bucket) / 2
                      else "bytes"),
-        "library_ms": total("library_ms"),
-        "launches_per_768x768_decode": sum(r["count"] for r in main),
+        "library_ms": total("library_ms", main_bucket),
+        "ms_of": main_bucket,
+        "per_call": {bk: {**{key: total(key, bk) for key in
+                             ("ms", "plain_ms", "bound_ms", "library_ms")},
+                          "count": sum(r["count"] for r in rows
+                                       if r["bucket"] == bk)}
+                     for bk in buckets},
         "per_launch": rows,
     }
 
@@ -450,6 +743,109 @@ def main_path(seed: int):
     return launches
 
 
+def synthetic_batches(seed: int, batch: int, size: int = 1024):
+    """Seeded synthetic images in [-1, 1]: 32-pixel blocks of random colour
+    with fine noise on top, (batch, size, size, 3) f32, forever."""
+    rng = np.random.default_rng(seed)
+    while True:
+        coarse = rng.uniform(-1, 1, (batch, size // 32, size // 32, 3))
+        img = 0.8 * np.repeat(np.repeat(coarse, 32, 1), 32, 2) \
+            + 0.2 * rng.uniform(-1, 1, (batch, size, size, 3))
+        yield {"image": img.astype(np.float32)}
+
+
+def train_path(seed: int):
+    """The training phase: steps of ``Trainer.train_one_step`` at full
+    width; returns each kernel's launches over the phase."""
+    from onedc_tpu_torch.config import load_config
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.train.step import split_frozen, warmup_constant_lr
+    from onedc_tpu_torch.train.trainer import Trainer
+
+    for key, value in TRAIN_OVERRIDES.items():
+        print(f"train override: {key} = {value!r}", flush=True)
+    cfg = load_config("configs/train_stage1.yaml", TRAIN_OVERRIDES)
+    trainer = Trainer(cfg, device="cuda",
+                      batches=synthetic_batches(seed, cfg["batch_size"]))
+    model = trainer.model
+    init_random_weights(model, seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    trainable = [p for _, p in split_frozen(model, trainer.frozen)[0]]
+    names = [n for n, _ in split_frozen(model, trainer.frozen)[0]]
+    print(f"model: {n_params / 1e9:.3f} B parameters, "
+          f"{sum(p.numel() for p in trainable) / 1e9:.3f} B trainable",
+          flush=True)
+    # two steps at the first resolution (512) and one at the second (768),
+    # by MultiResolutionCrop.pick's choice
+    low, high = cfg["resolutions"]
+    res = {s: trainer.crop.pick(s)[0] for s in range(64)}
+    steps = sorted([s for s in res if res[s] == low][:2]
+                   + [s for s in res if res[s] == high][:1])
+    vae_before = [p.detach().clone() for p in model.vae.parameters()]
+    params_before = [p.detach().clone() for p in trainable]
+    counters = ((k1, "launches"), (k1, "bwd_launches"), (k2, "launches"),
+                (k2, "conv_launches"))
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    records = []
+    for i, step in enumerate(steps):
+        before = tuple(getattr(m, a) for m, a in counters)
+        lr = warmup_constant_lr(trainer.state.step, float(cfg["lr"]),
+                                int(cfg["warmup_steps"]))
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_one_step(step)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = tuple(getattr(m, a) - b for (m, a), b in zip(counters, before))
+        want = TRAIN_PER_STEP[res[step]]
+        print(f"train step {step} ({res[step]}x{res[step]}, lr {lr:.3e}): "
+              f"{wall:.1f} ms wall, peak {peak:.2f} GiB, K1/K1-bwd/K2/K3 "
+              f"launches {got}; " + json.dumps(metrics), flush=True)
+        if got != want:
+            raise AssertionError(f"step {step}: launches {got}, expected "
+                                 f"{want}")
+        for key in ("total_loss", "pix", "bpp", "bpp_hard_y", "grad_norm"):
+            if not np.isfinite(metrics[key]):
+                raise AssertionError(f"step {step}: {key} {metrics[key]}")
+        grad = dict(model.named_parameters())[FIRST_ATTN1].grad
+        gnorm = grad.norm().item()
+        print(f"  |grad {FIRST_ATTN1}| = {gnorm:.4e}", flush=True)
+        if not (np.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError(f"step {step}: no gradient reached "
+                                 f"{FIRST_ATTN1}")
+        if i < 2:
+            same = [torch.equal(a, p)
+                    for a, p in zip(params_before, trainable)]
+        if i == 0:
+            if lr != 0 or not all(same):
+                raise AssertionError(f"the first update (lr {lr}) moved "
+                                     f"{same.count(False)} tensors")
+            print("  lr 0: every trainable tensor bit-identical", flush=True)
+        elif i == 1:
+            moved = same.count(False) / len(same)
+            print(f"  lr {lr:.3e}: {same.count(False)} of {len(same)} "
+                  f"trainable tensors changed; unchanged: "
+                  f"{[n for n, sm in zip(names, same) if sm][:5]}",
+                  flush=True)
+            if not (lr > 0 and moved >= 0.99):
+                raise AssertionError("an update with lr > 0 left the "
+                                     "parameters in place")
+            params_before = []  # free the copy
+        records.append(dict(step=step, res=res[step], wall_ms=wall,
+                            peak_gib=peak, launches=got, **metrics))
+    if not all(torch.equal(a, p) for a, p in zip(vae_before,
+                                                   model.vae.parameters())):
+        raise AssertionError("a frozen VAE parameter changed")
+    print(f"VAE: all {len(vae_before)} parameters bit-identical after "
+          f"{len(steps)} steps", flush=True)
+    return {"K1": k1.launches, "K1-bwd": k1.bwd_launches,
+            "K2": k2.launches, "K3": k2.conv_launches}, records
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -481,19 +877,35 @@ def main():
     gen.manual_seed(args.seed)
     k1_rows = check_k1(gen)
     k2_rows = check_k2(gen)
+    k1t_rows, k1b_rows = check_k1_train(gen)
+    k2t_rows, k3_rows = check_k2_k3_train(gen)
     torch.cuda.empty_cache()
 
-    launches = main_path(args.seed)
+    decode = main_path(args.seed)
+    torch.cuda.empty_cache()
+    train, records = train_path(args.seed)
 
     kernels = [
         summarize("flash_attention_fwd",
                   "onedc_tpu_torch/csrc/flash_attention.cu",
-                  "onedc_tpu/nn/attention.py:43", k1_rows, launches["K1"]),
-        summarize("gn_silu_conv3x3",
-                  "onedc_tpu_torch/csrc/gn_silu_conv3x3.cu",
-                  "onedc_tpu/ops/pallas_conv.py:292", k2_rows,
-                  launches["K2"]),
+                  "onedc_tpu/nn/attention.py:43", k1_rows + k1t_rows,
+                  {"decode": decode["K1"], "train": train["K1"]}, "768x768"),
+        summarize("flash_attention_bwd",
+                  "onedc_tpu_torch/csrc/flash_attention_bwd.cu",
+                  "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
+                  k1b_rows, {"train": train["K1-bwd"]}, "train512"),
+        summarize("gn_silu_conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
+                  "onedc_tpu/ops/pallas_conv.py:292", k2_rows + k2t_rows,
+                  {"decode": decode["K2"], "train": train["K2"]}, "768x768"),
+        summarize("conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
+                  "onedc_tpu/ops/pallas_conv.py:89", k3_rows,
+                  {"train": train["K3"]}, "train512"),
     ]
+    for k in kernels:
+        if any(n == 0 for n in k["launches_by_path"].values()):
+            raise AssertionError(f"{k['name']} was not launched on a main "
+                                 f"path: {k['launches_by_path']}")
+    print("train steps " + json.dumps(records), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,9 +1,13 @@
-// Flash attention forward (non-causal) for Hopper, bf16 in and out.
+// Flash attention forward (non-causal) for Hopper, bf16 or f32 in and out.
 //
 // Replaces the Pallas TPU kernel reached from onedc_tpu/nn/attention.py:43
-// (flash_attention_tpu -> jax.experimental.pallas.ops.tpu.flash_attention).
-// Computes o = softmax(q k^T * scale) v per (batch, head) with an online
-// softmax, so the N x M score matrix never reaches device memory.
+// (flash_attention_tpu -> jax.experimental.pallas.ops.tpu.flash_attention,
+// _flash_attention_impl). Computes o = softmax(q k^T * scale) v per
+// (batch, head) with an online softmax, so the N x M score matrix never
+// reaches device memory; on request it also writes the row log-sum-exp
+// lse = log(sum_j exp(scale * q.k_j)) (B, H, N) f32, which the backward
+// (flash_attention_bwd.cu) uses to recompute the probabilities, as the TPU
+// kernel saves l and m for its VJP.
 //
 // Layout: q (B, N, H, D), k and v (B, M, H, D), o (B, N, H, D), contiguous.
 // The kernel reads the heads through strides: no transpose and no padding of
@@ -16,97 +20,37 @@
 // tensor cores (mma.sync m16n8k16 bf16, f32 accumulate), keeps the
 // probabilities in registers between the two products (the QK^T accumulator
 // fragment is re-packed as the A operand of PV), and stages K and V in shared
-// memory once per 64-key tile for all four warps, double-buffered with
-// cp.async so the next tile's copies overlap this tile's math. D is padded
-// inside the kernel to a multiple of 16 (40 -> 48, 80 -> 80) by zero-filled
-// copies. Not yet done: TMA and wgmma (later work).
+// memory once per 64-key tile for all four warps, double-buffered. bf16
+// operands go by cp.async, so the next tile's copies overlap this tile's
+// math; f32 operands (the training path) are loaded through registers and
+// rounded to bf16 as they are staged, so the products keep bf16 operands and
+// f32 accumulation, as the TPU runs f32 matmuls at default precision. D is
+// padded inside the kernel to a multiple of 16 (8 -> 16, 40 -> 48) by
+// zero-filled copies. Not yet done: TMA and wgmma (later work).
 //
 // Grid: one block per (64-query tile, batch*head); 4 warps, 16 query rows
 // each. Ragged N and M edges are masked.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "mma.cuh"
+
 #include <math.h>
-#include <stdint.h>
 
 namespace {
+
+using namespace onedc;
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 tiles from shared memory: the B fragments of two
-// adjacent n8 tiles when B is stored k-major (rows = k).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const __nv_bfloat16* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16-byte global -> shared copy that bypasses the registers; with
-// pred false it writes 16 zero bytes and reads nothing
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// Starts the copy of 64 rows x DP columns from global (row stride `stride`
-// elements) into shared memory (row stride DP + 8); rows >= rows_valid and
-// columns >= D are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s,
-                                          const __nv_bfloat16* g,
-                                          int rows_valid, size_t stride,
-                                          int D) {
-  constexpr int LD = DP + 8;
-  constexpr int VPR = DP / 8;
-  for (int i = threadIdx.x; i < 64 * VPR; i += kThreads) {
-    const int r = i / VPR;
-    const int d = (i % VPR) * 8;
-    const bool valid = r < rows_valid && d < D;
-    cp_async16(s + r * LD + d, valid ? g + r * stride + d : g, valid);
-  }
-}
-
-template <int DP>
+template <int DP, typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int N, int M, int H,
-                     int D, float scale_log2) {
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int N, int M, int H, int D,
+                     float scale_log2) {
   constexpr int LD = DP + 8;
   constexpr int NT = kBlockK / 8;  // n8 tiles of scores per key tile
   constexpr int DT = DP / 8;       // n8 tiles of output
@@ -119,12 +63,10 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const size_t stride = static_cast<size_t>(H) * D;
-  const __nv_bfloat16* qb =
+  const T* qb =
       q + (static_cast<size_t>(b) * N + n0) * stride + static_cast<size_t>(h) * D;
-  const __nv_bfloat16* kb =
-      k + static_cast<size_t>(b) * M * stride + static_cast<size_t>(h) * D;
-  const __nv_bfloat16* vb =
-      v + static_cast<size_t>(b) * M * stride + static_cast<size_t>(h) * D;
+  const T* kb = k + static_cast<size_t>(b) * M * stride + static_cast<size_t>(h) * D;
+  const T* vb = v + static_cast<size_t>(b) * M * stride + static_cast<size_t>(h) * D;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -252,56 +194,69 @@ __global__ void __launch_bounds__(kThreads)
     const int d = i * 8 + 2 * t;
     if (d >= D) continue;
     if (r_lo < N) {
-      *reinterpret_cast<uint32_t*>(
-          o + ((static_cast<size_t>(b) * N + r_lo) * H + h) * D + d) =
-          pack_bf16(acc[i][0] * inv0, acc[i][1] * inv0);
+      store2<T>(o + ((static_cast<size_t>(b) * N + r_lo) * H + h) * D + d,
+                acc[i][0] * inv0, acc[i][1] * inv0);
     }
     if (r_hi < N) {
-      *reinterpret_cast<uint32_t*>(
-          o + ((static_cast<size_t>(b) * N + r_hi) * H + h) * D + d) =
-          pack_bf16(acc[i][2] * inv1, acc[i][3] * inv1);
+      store2<T>(o + ((static_cast<size_t>(b) * N + r_hi) * H + h) * D + d,
+                acc[i][2] * inv1, acc[i][3] * inv1);
     }
+  }
+  if (lse != nullptr && t == 0) {  // natural log of the scaled row sum
+    float* lb = lse + (static_cast<size_t>(b) * H + h) * N;
+    if (r_lo < N) lb[r_lo] = (m_run[0] + log2f(l_run[0])) * kLn2;
+    if (r_hi < N) lb[r_hi] = (m_run[1] + log2f(l_run[1])) * kLn2;
   }
 }
 
-template <int DP>
+template <int DP, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int N, int M, int H, int D, float scale,
+                   float* lse, int B, int N, int M, int H, int D, float scale,
                    cudaStream_t stream) {
   // Q tile + two stages of (K tile, V tile)
   const size_t smem = static_cast<size_t>(5) * 64 * (DP + 8) * sizeof(__nv_bfloat16);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((N + kBlockQ - 1) / kBlockQ, B * H);
-  flash_fwd_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), N,
-      M, H, D, scale * 1.4426950408889634f);
+  flash_fwd_kernel<DP, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, N, M, H, D,
+      scale * kLog2e);
   return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse,
+             int B, int N, int M, int H, int D, float scale, cudaStream_t s) {
+  switch ((D + 15) / 16 * 16) {
+    case 16: return launch<16, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    case 32: return launch<32, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    case 48: return launch<48, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    case 64: return launch<64, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    case 80: return launch<80, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    case 96: return launch<96, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    case 112: return launch<112, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    case 128: return launch<128, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    case 144: return launch<144, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    case 160: return launch<160, T>(q, k, v, o, lse, B, N, M, H, D, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
+// q, k, v, o of one type: f32 when `f32` is nonzero, else bf16. lse may be
+// null (no log-sum-exp written).
 extern "C" int onedc_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int B, int N,
-                                         int M, int H, int D, float scale,
-                                         void* stream) {
+                                         const void* v, void* o, void* lse,
+                                         int B, int N, int M, int H, int D,
+                                         float scale, int f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((D + 15) / 16 * 16) {
-    case 16: return launch<16>(q, k, v, o, B, N, M, H, D, scale, s);
-    case 32: return launch<32>(q, k, v, o, B, N, M, H, D, scale, s);
-    case 48: return launch<48>(q, k, v, o, B, N, M, H, D, scale, s);
-    case 64: return launch<64>(q, k, v, o, B, N, M, H, D, scale, s);
-    case 80: return launch<80>(q, k, v, o, B, N, M, H, D, scale, s);
-    case 96: return launch<96>(q, k, v, o, B, N, M, H, D, scale, s);
-    case 112: return launch<112>(q, k, v, o, B, N, M, H, D, scale, s);
-    case 128: return launch<128>(q, k, v, o, B, N, M, H, D, scale, s);
-    case 144: return launch<144>(q, k, v, o, B, N, M, H, D, scale, s);
-    case 160: return launch<160>(q, k, v, o, B, N, M, H, D, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  float* l = static_cast<float*>(lse);
+  return f32 ? dispatch<float>(q, k, v, o, l, B, N, M, H, D, scale, s)
+             : dispatch<__nv_bfloat16>(q, k, v, o, l, B, N, M, H, D, scale, s);
 }

@@ -1,8 +1,9 @@
-"""Conditional Gaussian entropy model: scale -> CDF index, and the coder
-bridge.
+"""Conditional Gaussian entropy model: bit estimates for training, scale ->
+CDF index, and the coder bridge.
 
-JAX counterpart: ``onedc_tpu/entropy/gaussian.py`` (``build_indexes``
-:101-116 and the host half :135-284). The CDF bank is this package's own
+JAX counterpart: ``onedc_tpu/entropy/gaussian.py`` (``gaussian_prob``,
+``probs_to_bits``, ``gaussian_bits`` :58-99, ``build_indexes`` :101-116
+and the host half :135-284). The CDF bank is this package's own
 copy of the vendored table, ``entropy/data/gaussian_cdf16.npz``, captured
 from the reference's ``GaussianEncoder.update``; bitstream interop needs
 it bit-identical, so it is loaded, never recomputed.
@@ -16,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .bound import lower_bound
 from .coder import EntropyCoder
 
 SCALE_MIN = 0.11
@@ -71,6 +73,39 @@ def build_indexes(scales: torch.Tensor, skip_thres=None) -> torch.Tensor:
     if skip_thres is not None:
         idx = torch.where(scales < skip_thres, -1, idx)
     return idx
+
+
+def gaussian_prob(values: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """P(round(v) | N(0, scale)) by the complementary error function, the
+    training-time estimator (``onedc_tpu/entropy/gaussian.py:58-69``),
+    including its |v| symmetry trick."""
+    const = -(2 ** -0.5)
+    scales = lower_bound(scales, 0.11)
+    values = values.abs()
+    upper = torch.special.erfc(const * ((0.5 - values) / scales))
+    lower = torch.special.erfc(const * ((-0.5 - values) / scales))
+    return lower_bound(0.5 * (upper - lower), 1e-9)
+
+
+def probs_to_bits(probs: torch.Tensor) -> torch.Tensor:
+    """-log2(p + 1e-5), bounded below by 0 (``gaussian.py:83-85``)."""
+    bits = -torch.log(probs + 1e-5) / math.log(2.0)
+    return lower_bound(bits, 0.0)
+
+
+def gaussian_bits(y: torch.Tensor, sigma: torch.Tensor,
+                  training: bool = True) -> torch.Tensor:
+    """Bits to code y under N(0, sigma) (``gaussian.py:88-98``): the erfc
+    estimator in training, the exact CDF difference in eval."""
+    if training:
+        probs = gaussian_prob(y, sigma)
+    else:
+        sigma = torch.clamp(sigma, 1e-5, 1e10)
+        const = 1.0 / (sigma * math.sqrt(2.0))
+        upper = 0.5 * (1.0 + torch.special.erf((y + 0.5) * const))
+        lower = 0.5 * (1.0 + torch.special.erf((y - 0.5) * const))
+        probs = upper - lower
+    return probs_to_bits(probs)
 
 
 def load_cdf_table():

@@ -1,37 +1,45 @@
-"""Latent codec, decode half: hyper decoder, four-part prior programs and
-the synthesis transform g_s.
+"""Latent codec: the analysis transform g_a, the hyper encoder and decoder,
+the rate-distortion training forward, the four-part prior programs of the
+decode and the synthesis transform g_s.
 
-JAX counterpart: ``onedc_tpu/models/codec.py`` (:78-200, :356-405). The
-per-step programs ``decompress_begin`` / ``decompress_update`` /
-``decompress_finish`` keep the JAX package's NHWC arrays at their
-boundary (the host rANS loop reads the CDF indexes and writes the symbols
-in that layout); the nets inside compute in NCHW.
+JAX counterpart: ``onedc_tpu/models/codec.py`` (:53-200, :262-311,
+:356-405). The per-step programs ``decompress_begin`` /
+``decompress_update`` / ``decompress_finish`` keep the JAX package's NHWC
+arrays at their boundary (the host rANS loop reads the CDF indexes and
+writes the symbols in that layout); the nets inside compute in NCHW. The
+training forward runs its four-part prior in NHWC too, so that its noise
+and its masks have the JAX layout.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..entropy.bound import add_uniform_noise
 from ..entropy.fourpart import (
     combine_quarters,
     decompress_step_update,
+    forward_four_part_prior,
     four_part_masks,
     separate_prior,
 )
-from ..entropy.gaussian import build_indexes
+from ..entropy.gaussian import build_indexes, gaussian_bits
 from ..nn.blocks import (
     AttnBlockVQ,
+    BottleneckGroup,
     DepthConvBlock4,
     ResidualBlockUpsample,
     ResnetBlockVQ,
     UpsampleGroup,
     conv1x1,
+    conv3x3,
 )
 from ..nn.fsq import FSQ
+from ..nn.unet_enc import EncoderUNet
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -40,6 +48,55 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+class CodecEncoder(nn.Module):
+    """Analysis transform g_a: image (B, 3, H, W) + VAE latent (B, cond_ch,
+    H/8, W/8) -> (y (B, out_ch, H/16, W/16), sem (B, ch_config[-1], H/64,
+    W/64))."""
+
+    def __init__(self, in_ch: int = 3, cond_ch: int = 4, out_ch: int = 128,
+                 unet_ch_config: Sequence[int] = (512, 768, 768),
+                 emb_ch: int = 192, ctrl_ch: int = 320):
+        super().__init__()
+        ch_16x = unet_ch_config[0]
+        self.pix_emb = nn.Conv2d(in_ch, emb_ch, 8, stride=8)
+        self.pix_fusion = conv1x1(emb_ch + cond_ch, ctrl_ch)
+        self.unet = EncoderUNet(ctrl_ch, ch_16x, unet_ch_config)
+        self.tc_bottleneck = BottleneckGroup(ch_16x)
+        self.tc_block0 = DepthConvBlock4(ch_16x, ch_16x)
+        self.tc_block1 = DepthConvBlock4(ch_16x, out_ch)
+
+    def forward(self, x, cond):
+        x_emb = self.pix_fusion(torch.cat([self.pix_emb(x), cond], dim=1))
+        y, sem = self.unet(x_emb)
+        y = self.tc_block1(self.tc_block0(self.tc_bottleneck(y)))
+        return y, sem
+
+
+class HyperEncoder(nn.Module):
+    """y (/16) + sem (/64) -> z (/64, z_ch channels)."""
+
+    def __init__(self, y_ch: int = 128, sem_ch: int = 768,
+                 internal_ch: int = 512, z_ch: int = 7):
+        super().__init__()
+        self.ytc_block0 = DepthConvBlock4(y_ch, y_ch)
+        self.ytc_down0 = conv3x3(y_ch, y_ch, stride=2)
+        self.ytc_block1 = DepthConvBlock4(y_ch, y_ch)
+        self.ytc_down1 = conv3x3(y_ch, y_ch, stride=2)
+        self.fusion_block0 = DepthConvBlock4(y_ch + sem_ch, sem_ch)
+        self.fusion_attn0 = AttnBlockVQ(sem_ch)
+        self.fusion_block1 = DepthConvBlock4(sem_ch, internal_ch)
+        self.fusion_attn1 = AttnBlockVQ(internal_ch)
+        self.fusion_block2 = DepthConvBlock4(internal_ch, internal_ch)
+        self.fusion_out = conv1x1(internal_ch, z_ch)
+
+    def forward(self, y, sem):
+        h = self.ytc_down0(self.ytc_block0(y))
+        h = self.ytc_down1(self.ytc_block1(h))
+        h = self.fusion_block0(torch.cat([h, sem], dim=1))
+        h = self.fusion_attn1(self.fusion_block1(self.fusion_attn0(h)))
+        return self.fusion_out(self.fusion_block2(h))
 
 
 class CodecDecoder(nn.Module):
@@ -148,7 +205,9 @@ class SpatialPrior(nn.Module):
 
 
 class LatentCodec(nn.Module):
-    """Decode half of the IntraNoAR-equivalent latent codec.
+    """The IntraNoAR-equivalent latent codec: ``forward`` is the
+    rate-distortion training / eval forward, the ``decompress_*`` programs
+    the decode.
 
     ``compute_dtype`` is the dtype the nets run in (bf16 for serving); the
     FSQ codes and the decoded symbols are cast to it, as in the JAX
@@ -156,7 +215,8 @@ class LatentCodec(nn.Module):
     computed in f32 (``build_indexes``).
     """
 
-    def __init__(self, ctrl_ch: int = 320, internal_ch: int = 512,
+    def __init__(self, cond_ch: int = 4, ctrl_ch: int = 320,
+                 internal_ch: int = 512,
                  bottleneck_ch: int = 128,
                  unet_ch_config: Sequence[int] = (512, 768, 768),
                  z_fsq_levels: Sequence[int] = (4, 4, 4, 4, 4, 4, 4),
@@ -169,6 +229,10 @@ class LatentCodec(nn.Module):
         self.compute_dtype = compute_dtype
         self.ds = 64        # padding granularity
         self.z_vq = FSQ(z_fsq_levels)
+        self.enc = CodecEncoder(3, cond_ch, n, unet_ch_config,
+                                ctrl_ch=ctrl_ch)
+        self.hyper_enc = HyperEncoder(n, sem_ch, internal_ch,
+                                      len(z_fsq_levels))
         self.dec = CodecDecoder(n, internal_ch, sem_ch, ctrl_ch)
         self.semantic_adaptor = SemanticAdaptor(n, sem_ch)
         self.hyper_dec = HyperDecoder(n, len(z_fsq_levels))
@@ -178,6 +242,63 @@ class LatentCodec(nn.Module):
             self.add_module(f"y_spatial_prior_adaptor_{i}",
                             DepthConvBlock4(n * 2, n * 2))
         self.y_spatial_prior = SpatialPrior(n)
+
+    def _prior_step(self, i: int):
+        """NHWC params -> NHWC (scales | means) of step i + 1 (1..3)."""
+        adaptor = getattr(self, f"y_spatial_prior_adaptor_{i + 1}")
+        return lambda p: nhwc(self.y_spatial_prior(adaptor(nchw(p))))
+
+    def forward(self, x, cond, training: bool = False,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """The RD forward (``onedc_tpu/models/codec.py:262-311``). x: image
+        (B, 3, H, W), padded to a multiple of 64; cond: VAE latent (B,
+        cond_ch, H/8, W/8).
+
+        In training the bits of y are estimated on y_res plus U(-0.5, 0.5)
+        noise, given as ``noise`` (NHWC, the shape of y: (B, H/16, W/16,
+        C), the JAX layout) or drawn from ``generator``; with neither, or
+        out of training, on the rounded y_q. Returns the JAX keys: "x_hat",
+        "y_hat", "y_semantic", "z_semantic" (NCHW), "z_indices" (B, H/64,
+        W/64), "bit", "bpp", "bpp_y", "bpp_hard_y" (scalars).
+        """
+        pixel_num = x.shape[2] * x.shape[3]
+        y, sem = self.enc(x, cond)
+        z = self.hyper_enc(y, sem)
+        z_hat, z_indices = self.z_vq(nhwc(z))
+        params, z_semantic = self.hyper_dec(nchw(z_hat))
+        params = self.y_prior_fusion(params)
+        y_res, y_q, y_hat, scales_hat = forward_four_part_prior(
+            nhwc(y), nhwc(params), [self._prior_step(i) for i in range(3)],
+            reduction=lambda p: nhwc(self.y_spatial_prior_reduction(
+                nchw(p))),
+            training=training, force_zero_thres=self.force_zero_thres)
+        y_semantic = self.semantic_adaptor(z_semantic)
+        x_hat = self.dec(nchw(y_hat), y_semantic)
+
+        if training and noise is not None:
+            y_for_bit = y_res + noise
+        elif training and generator is not None:
+            y_for_bit = add_uniform_noise(y_res, generator)
+        else:
+            y_for_bit = y_q
+        bits_y = gaussian_bits(y_for_bit, scales_hat, training=training)
+        bpp_y = (bits_y.sum((1, 2, 3)) / pixel_num).mean()
+        bits_hard = gaussian_bits(y_q.detach(), scales_hat,
+                                  training=training)
+        bpp_hard_y = (bits_hard.sum((1, 2, 3)) / pixel_num).mean()
+        return {
+            "x_hat": x_hat,
+            "y_hat": nchw(y_hat),
+            "bit": bpp_y * pixel_num,
+            "bpp": bpp_y,
+            "bpp_y": bpp_y,
+            "bpp_hard_y": bpp_hard_y,
+            "y_semantic": y_semantic,
+            "z_semantic": z_semantic,
+            "z_indices": z_indices,
+        }
 
     def _rans_indexes(self, scales_r: torch.Tensor) -> torch.Tensor:
         """CDF indexes in the smallest dtype that fits: uint8 (0..255), or

@@ -1,10 +1,10 @@
-"""OneDC composite model, decode side: latent codec + one-step SD UNet +
-VAE decoder, and the bitstream runtime.
+"""OneDC composite model: latent codec + one-step SD UNet + VAE, its
+stage-I training forward, and the bitstream decode runtime.
 
-JAX counterpart: ``onedc_tpu/models/onedc.py`` (:41-224 ``OneDC``,
-:226-365 ``OneDCRuntime.decode``, :467-531 ``decode_batch`` and the
-non-pipelined ``_decode_bucket``). As in the JAX package, x0 is recovered
-in f32 and the VAE decodes in the serving dtype.
+JAX counterpart: ``onedc_tpu/models/onedc.py`` (:41-224 ``OneDC``, with the
+training forward :156-184, :226-365 ``OneDCRuntime.decode``, :467-531
+``decode_batch`` and the non-pipelined ``_decode_bucket``). As in the JAX
+package, x0 is recovered in f32 and the VAE decodes in the working dtype.
 
 ``OneDCRuntime`` runs on the card unless the caller names another device:
 with no device and no GPU it raises, it does not drop to the CPU.
@@ -28,7 +28,7 @@ from .runtime import CodecRuntime
 
 
 class OneDC(nn.Module):
-    """Composite decode model. Submodules: vae / unet / codec."""
+    """Composite model. Submodules: vae / unet / codec."""
 
     def __init__(self, internal_ch: int = 512, bottleneck_ch: int = 128,
                  unet_ch_config: Sequence[int] = (512, 768, 768),
@@ -40,8 +40,13 @@ class OneDC(nn.Module):
                  vae_block_channels: Sequence[int] = (128, 256, 512, 512),
                  vae_attn_patch: int = 16, vae_scaling_factor: float = 0.18215,
                  conditioning_timestep: int = 999,
-                 num_train_timesteps: int = 1000):
+                 num_train_timesteps: int = 1000,
+                 use_codeformer: bool = False):
         super().__init__()
+        if use_codeformer:
+            raise NotImplementedError(
+                "use_codeformer: the Codeformer, MaskGitVQGAN and Swin "
+                "modules are not ported yet")
         self.vae_scaling_factor = vae_scaling_factor
         self.conditioning_timestep = conditioning_timestep
         self.vae = AutoencoderKL(vae_block_channels, vae_ch, vae_attn_patch)
@@ -49,13 +54,39 @@ class OneDC(nn.Module):
             in_ch=ctrl_ch, out_ch=vae_ch, vae_ch=vae_ch,
             block_channels=sd_block_channels, context_dim=context_dim)
         self.codec = LatentCodec(
-            ctrl_ch=ctrl_ch, internal_ch=internal_ch,
+            cond_ch=vae_ch, ctrl_ch=ctrl_ch, internal_ch=internal_ch,
             bottleneck_ch=bottleneck_ch, unet_ch_config=unet_ch_config,
             z_fsq_levels=z_fsq_levels, force_zero_thres=force_zero_thres)
         self.alphas_cumprod = make_alphas_cumprod(num_train_timesteps)
 
+    def vae_encode_image(self, image):
+        """image NCHW -> the posterior mean times the scaling factor,
+        detached (``onedc_tpu/models/onedc.py:111-118``, the deterministic
+        encode); the frozen encoder runs with no autograd record."""
+        with torch.no_grad():
+            mean, _ = self.vae.encode(image)
+            return mean * self.vae_scaling_factor
+
     def vae_decode_image(self, latents):
         return self.vae.decode(latents / self.vae_scaling_factor)
+
+    def forward(self, image, training: bool = False,
+                noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """The stage-I training forward (``onedc.py:156-184``, codeformer
+        branch excluded): image (B, H, W, 3) NHWC in [-1, 1] -> (enc_dict,
+        pred_image (B, H, W, 3) NHWC). ``noise`` / ``generator`` feed the
+        codec's bit estimate (``LatentCodec.forward``). enc_dict holds the
+        codec's keys plus "x_latent" and "x_latent_recon" (x0, f32), NCHW.
+        """
+        x = image.permute(0, 3, 1, 2)
+        x_latent = self.vae_encode_image(x)
+        enc_dict = self.codec(x, x_latent, training=training, noise=noise,
+                              generator=generator)
+        pred, x0 = self.generate(enc_dict["x_hat"], enc_dict["y_semantic"])
+        enc_dict["x_latent"] = x_latent
+        enc_dict["x_latent_recon"] = x0
+        return enc_dict, nhwc(pred)
 
     def _one_step_x0(self, x_hat, y_semantic):
         """One UNet step at t=999 on the control tensor, x0 in f32."""

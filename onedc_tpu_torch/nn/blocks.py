@@ -228,6 +228,40 @@ class AttnBlockVQ(nn.Module):
         return x + self.proj_out(out)
 
 
+class ResnetAttnGroup(nn.Module):
+    """``res_num`` resnet blocks, then ``attn_num`` attention blocks
+    (``onedc_tpu/nn/blocks.py:335-348``)."""
+
+    def __init__(self, channels: int, res_num: int, attn_num: int):
+        super().__init__()
+        self.res_num = res_num
+        self.attn_num = attn_num
+        for i in range(res_num):
+            self.add_module(f"res{i}", ResnetBlockVQ(channels))
+        for i in range(attn_num):
+            self.add_module(f"attn{i}", AttnBlockVQ(channels))
+
+    def forward(self, x):
+        for i in range(self.res_num):
+            x = getattr(self, f"res{i}")(x)
+        for i in range(self.attn_num):
+            x = getattr(self, f"attn{i}")(x)
+        return x
+
+
+class BottleneckGroup(nn.Module):
+    """Resnet - attention - resnet bottleneck (``blocks.py:351-361``)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.res0 = ResnetBlockVQ(channels)
+        self.attn = AttnBlockVQ(channels)
+        self.res1 = ResnetBlockVQ(channels)
+
+    def forward(self, x):
+        return self.res1(self.attn(self.res0(x)))
+
+
 class UpsampleGroup(nn.Module):
     """1x1 conv to 4x channels, pixel shuffle x2, 3x3 conv."""
 

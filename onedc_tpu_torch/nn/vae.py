@@ -1,9 +1,10 @@
-"""SD-class KL autoencoder, decoder half, with windowed mid-block attention.
+"""SD-class KL autoencoder with windowed mid-block attention.
 
-JAX counterpart: ``onedc_tpu/nn/vae.py`` (:46-164, :192-211). SD 2.1 VAE
-decoder: block channels (128, 256, 512, 512) reversed, 3 resnets per
-level, mid-block attention on non-overlapping ``attn_patch`` windows
-(single head).
+JAX counterpart: ``onedc_tpu/nn/vae.py`` (:46-232). SD 2.1 VAE: the encoder
+with block channels (128, 256, 512, 512), 2 resnets per level and the
+asymmetric (0, 1, 0, 1) pad before each stride-2 downsample (:134-137);
+the decoder with the channels reversed and 3 resnets per level; mid-block
+attention on non-overlapping ``attn_patch`` windows (single head).
 
 Every ``VaeResnetBlock`` conv goes through ``affine_silu_conv3x3``
 (``ops/conv3x3.py``): the GroupNorm statistics are folded into one
@@ -128,6 +129,26 @@ class VaeMidBlock(nn.Module):
         return self.resnets_1(self.attentions_0(self.resnets_0(x)))
 
 
+class VaeDownBlock(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, num_layers: int = 2,
+                 add_downsample: bool = True):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            self.add_module(f"resnets_{i}", VaeResnetBlock(
+                in_ch if i == 0 else out_ch, out_ch))
+        if add_downsample:
+            self.downsamplers_0 = nn.Conv2d(out_ch, out_ch, 3, stride=2)
+
+    def forward(self, x):
+        for i in range(self.num_layers):
+            x = getattr(self, f"resnets_{i}")(x)
+        if hasattr(self, "downsamplers_0"):
+            # diffusers pads (0, 1, 0, 1) before the VALID stride-2 conv
+            x = self.downsamplers_0(F.pad(x, (0, 1, 0, 1)))
+        return x
+
+
 class VaeUpBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, num_layers: int = 3,
                  add_upsample: bool = True):
@@ -145,6 +166,35 @@ class VaeUpBlock(nn.Module):
         if hasattr(self, "upsamplers_0"):
             x = self.upsamplers_0(x)
         return x
+
+
+class VaeEncoder(nn.Module):
+    """image (B, 3, H, W) -> moments (B, 2 * latent_ch, H/8, W/8)."""
+
+    def __init__(self, block_channels: Sequence[int] = (128, 256, 512, 512),
+                 latent_ch: int = 4, layers_per_block: int = 2,
+                 attn_patch: int = 16):
+        super().__init__()
+        self.n_levels = len(block_channels)
+        self.conv_in = conv3x3(3, block_channels[0])
+        prev = block_channels[0]
+        for i, c in enumerate(block_channels):
+            self.add_module(f"down_blocks_{i}", VaeDownBlock(
+                prev, c, layers_per_block,
+                add_downsample=i < len(block_channels) - 1))
+            prev = c
+        self.mid_block = VaeMidBlock(prev, attn_patch)
+        self.conv_norm_out = GroupNorm(prev, 32, 1e-6)
+        self.conv_out = conv3x3(prev, 2 * latent_ch)
+        self.quant_conv = conv1x1(2 * latent_ch, 2 * latent_ch)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for i in range(self.n_levels):
+            x = getattr(self, f"down_blocks_{i}")(x)
+        x = self.mid_block(x)
+        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.quant_conv(x)
 
 
 class VaeDecoder(nn.Module):
@@ -174,13 +224,20 @@ class VaeDecoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The KL VAE's decoder half (the encoder comes with the encode slice)."""
+    """The KL VAE; ``encode`` returns the (mean, logvar) moments."""
 
     def __init__(self, block_channels: Sequence[int] = (128, 256, 512, 512),
                  latent_ch: int = 4, attn_patch: int = 16):
         super().__init__()
+        self.encoder = VaeEncoder(block_channels, latent_ch,
+                                  attn_patch=attn_patch)
         self.decoder = VaeDecoder(block_channels, latent_ch,
                                   attn_patch=attn_patch)
+
+    def encode(self, x: torch.Tensor):
+        """image NCHW -> (mean, logvar clipped to [-30, 20]), each NCHW."""
+        mean, logvar = torch.chunk(self.encoder(x), 2, dim=1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(z)

@@ -5,8 +5,9 @@
 - The rANS coder: ``g++`` on ``ops/cpp/onedc_rans.cpp``.
 
 Libraries land in ``build/onedc_tpu_torch/`` at the repository root (listed in
-``.gitignore``), named by a hash of source and flags: an edited source builds
-anew and a stale library is never loaded. A library is written under a
+``.gitignore``), named by a hash of source, ``csrc/*.cuh`` headers and
+flags: an edited source or header builds anew and a stale library is never
+loaded. A library is written under a
 temporary name and renamed into place, so concurrent processes that build the
 same source do not see a half-written file. ``ptxas -v`` output (registers,
 shared memory, spills) is kept beside each CUDA library as ``<name>.log``.
@@ -29,8 +30,11 @@ BUILD_DIR = PKG_DIR.parent / "build" / "onedc_tpu_torch"
 
 CUDA_SOURCES = {
     "flash_attention": PKG_DIR / "csrc" / "flash_attention.cu",
-    "gn_silu_conv3x3": PKG_DIR / "csrc" / "gn_silu_conv3x3.cu",
+    "flash_attention_bwd": PKG_DIR / "csrc" / "flash_attention_bwd.cu",
+    "conv3x3": PKG_DIR / "csrc" / "conv3x3.cu",
 }
+# headers the CUDA sources include: part of every CUDA library's hash
+CUDA_HEADERS = sorted((PKG_DIR / "csrc").glob("*.cuh"))
 RANS_SOURCE = PKG_DIR / "ops" / "cpp" / "onedc_rans.cpp"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,6 +61,9 @@ def _nvcc() -> str:
 
 def _library_path(name: str, src: Path, flags: Sequence[str]) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    if src.suffix == ".cu":
+        for header in CUDA_HEADERS:
+            digest.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

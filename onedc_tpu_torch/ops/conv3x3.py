@@ -1,22 +1,35 @@
-"""K2: fused GroupNorm-affine + SiLU + 3x3 conv, a hand-written CUDA kernel.
+"""K2, fused GroupNorm-affine + SiLU + 3x3 conv, and K3, the plain 3x3
+conv: hand-written CUDA kernels (one template, ``csrc/conv3x3.cu``).
 
-JAX counterpart: ``onedc_tpu/ops/pallas_conv.py:404`` (``affine_silu_conv3x3``
+JAX counterparts: ``onedc_tpu/ops/pallas_conv.py:404`` (``affine_silu_conv3x3``
 -> ``_gn_silu_conv_fused`` :369 -> ``_conv3x3_v2_single`` :292, body
-``_kernel_v2`` :219). Kernel source: ``onedc_tpu_torch/csrc/gn_silu_conv3x3.cu``.
-On the H100 the tensor cores bound it (18*H*W*Cin*Cout FLOPs, ~380 FLOP
-per byte at 768x768x256->128); the kernel is an implicit GEMM on
-``mma.sync`` bf16 that stages each input patch once per channel chunk and
-applies the affine, the SiLU and the zero border there, so the normalised
-tensor never reaches device memory.
+``_kernel_v2`` :219) for K2, and ``:153 conv3x3_same`` (->
+``_conv3x3_pallas_single`` :89, body ``_kernel`` :43) for K3. On the H100 the
+tensor cores bound both (18*H*W*Cin*Cout FLOPs, ~380 FLOP per byte at
+768x768x256->128 in bf16); the kernel is an implicit GEMM on ``mma.sync``
+bf16 that stages each input patch once per channel chunk (f32 operands
+rounded to bf16 there) and, for K2, applies the affine and the SiLU there,
+so the normalised tensor never reaches device memory.
 
 ``affine_silu_conv3x3(x, mul, add, w, bias)`` keeps the JAX signature and
 layouts: x (B, H, W, Cin) NHWC, mul/add (B, Cin) f32 (GroupNorm statistics
 folded into one affine, ``nn/blocks.py:group_norm_affine``), w (3, 3, Cin,
-Cout) HWIO, i.e. [tap][Cin][Cout], bias (Cout,). It returns
-``conv3x3(silu(x * mul + add)) + bias`` as (B, H, W, Cout). For CUDA tensors
-it launches the kernel (or raises on what the kernel does not take); for CPU
-tensors it computes ``affine_silu_conv3x3_plain``. A CUDA tensor never
-reaches the plain version.
+Cout) HWIO, i.e. [tap][Cin][Cout], bias (Cout,); x, w and bias all bf16 or
+all f32. It returns ``conv3x3(silu(x * mul + add)) + bias`` as (B, H, W,
+Cout). When autograd records it runs through ``AffineSiluConv3x3``, whose
+backward does what ``_gnsc_bwd`` (:394-398) does: it recomputes
+``silu(x * mul + add)`` in plain torch, takes the conv's input gradient
+from K3 and its weight gradient from torch (the JAX package computes dw in
+XLA too, :174-178), and the affine and SiLU chain rule in plain torch.
+
+K3 enters the port as ``conv3x3_dx(g, w)``, the input gradient of the
+custom VJP of ``pallas_conv.py:152-182``: K3 on spatially flipped,
+in/out-transposed weights.
+
+For CUDA tensors each wrapper launches its kernel (or raises on what the
+kernel does not take); for CPU tensors it computes the plain version
+(``affine_silu_conv3x3_plain``, ``conv3x3_plain``, ``conv3x3_dx_plain``).
+A CUDA tensor never reaches a plain version.
 """
 
 from __future__ import annotations
@@ -31,15 +44,31 @@ from .build import load_library
 CIN_MULTIPLE = 32
 COUT_MULTIPLE = 8
 
-# launches of the CUDA kernel in this process (plain-version calls excluded)
+# launches of the CUDA kernels in this process (plain-version calls
+# excluded): K2 (``launches``) and K3 (``conv_launches``)
 launches = 0
+conv_launches = 0
+
+_DTYPES = (torch.bfloat16, torch.float32)
 
 _SIGNATURES = {
     "onedc_gn_silu_conv3x3": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
+    "onedc_conv3x3": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
 }
+
+
+def _conv_nhwc(x, w, bias=None):
+    """Zero-padded stride-1 3x3 conv of NHWC x with HWIO w, in torch."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), bias,
+                   padding=1)
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def affine_silu_conv3x3_plain(x, mul, add, w, bias):
@@ -47,58 +76,161 @@ def affine_silu_conv3x3_plain(x, mul, add, w, bias):
     ``pallas_conv.py:359``): affine + SiLU in f32, rounded to x's dtype,
     then a zero-padded 3x3 conv."""
     t = F.silu(x.float() * mul[:, None, None, :] + add[:, None, None, :])
-    t = t.to(x.dtype).permute(0, 3, 1, 2)
-    out = F.conv2d(t, w.permute(3, 2, 0, 1), bias, padding=1)
-    return out.permute(0, 2, 3, 1).contiguous()
+    return _conv_nhwc(t.to(x.dtype), w, bias)
 
 
-def _check(x, mul, add, w, bias):
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 \
-            or bias.dtype != torch.bfloat16:
-        raise TypeError(f"x, w, bias must be bf16 (got {x.dtype}, {w.dtype}, "
-                        f"{bias.dtype})")
-    if mul.dtype != torch.float32 or add.dtype != torch.float32:
-        raise TypeError("mul and add must be f32")
+def conv3x3_plain(x, w):
+    """K3's function in plain PyTorch: conv3x3(x), zero border, no bias."""
+    return _conv_nhwc(x, w)
+
+
+def flip_weights(w):
+    """HWIO (3, 3, Cin, Cout) -> (3, 3, Cout, Cin), spatially flipped: the
+    weights whose conv of the output gradient is the input gradient
+    (``pallas_conv.py:167``)."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def conv3x3_dx_plain(g, w):
+    """The input gradient of ``conv3x3_plain(x, w)`` for output gradient g,
+    as K3 computes it: conv3x3 of g with the flipped weights."""
+    return conv3x3_plain(g, flip_weights(w))
+
+
+def conv3x3_dw(x, g, w_shape):
+    """The weight gradient (HWIO) of conv3x3(x, w) for output gradient g,
+    by torch's weight-gradient convolution (cuDNN on the card), as the JAX
+    package leaves dw to XLA (``pallas_conv.py:174-178``)."""
+    cin, cout = w_shape[2], w_shape[3]
+    dw = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), (cout, cin, 3, 3),
+                                     g.permute(0, 3, 1, 2), padding=1)
+    return dw.permute(2, 3, 1, 0)
+
+
+def _check_conv(x, w, cin_multiple=CIN_MULTIPLE):
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must be both bf16 or both f32 (got "
+                        f"{x.dtype}, {w.dtype})")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, Cin), got {tuple(x.shape)}")
-    b, _, _, cin = x.shape
+    cin = x.shape[3]
     if w.shape[:3] != (3, 3, cin) or w.dim() != 4:
         raise ValueError(f"w must be (3, 3, {cin}, Cout), got "
                          f"{tuple(w.shape)}")
     cout = w.shape[3]
-    if cin % CIN_MULTIPLE or cout % COUT_MULTIPLE:
-        raise ValueError(f"Cin {cin} must be a multiple of {CIN_MULTIPLE} "
+    if cin % cin_multiple or cout % COUT_MULTIPLE:
+        raise ValueError(f"Cin {cin} must be a multiple of {cin_multiple} "
                          f"and Cout {cout} of {COUT_MULTIPLE}")
-    if mul.shape != (b, cin) or add.shape != (b, cin) or \
-            bias.shape != (cout,):
-        raise ValueError("mul/add must be (B, Cin) and bias (Cout,)")
-    for name, t in (("x", x), ("mul", mul), ("add", add), ("w", w),
-                    ("bias", bias)):
+
+
+def _check_layout(x, named):
+    for name, t in named:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+def _check(x, mul, add, w, bias):
+    _check_conv(x, w)
+    if bias.dtype != x.dtype:
+        raise TypeError(f"bias must be {x.dtype}, got {bias.dtype}")
+    if mul.dtype != torch.float32 or add.dtype != torch.float32:
+        raise TypeError("mul and add must be f32")
+    b, cin = x.shape[0], x.shape[3]
+    if mul.shape != (b, cin) or add.shape != (b, cin) or \
+            bias.shape != (w.shape[3],):
+        raise ValueError("mul/add must be (B, Cin) and bias (Cout,)")
+    _check_layout(x, (("x", x), ("mul", mul), ("add", add), ("w", w),
+                      ("bias", bias)))
+
+
 def affine_silu_conv3x3_cuda(x, mul, add, w, bias):
     """Launch K2 on x's current stream."""
     global launches
     _check(x, mul, add, w, bias)
-    lib = load_library("gn_silu_conv3x3", _SIGNATURES)
+    lib = load_library("conv3x3", _SIGNATURES)
     b, h, width, cin = x.shape
     cout = w.shape[3]
     out = torch.empty((b, h, width, cout), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.onedc_gn_silu_conv3x3(
         x.data_ptr(), mul.data_ptr(), add.data_ptr(), w.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, width, cin, cout, stream)
+        bias.data_ptr(), out.data_ptr(), b, h, width, cin, cout,
+        int(x.dtype == torch.float32), stream)
     if err != 0:
         raise RuntimeError(f"gn_silu_conv3x3 launch failed: CUDA error {err}")
     launches += 1
     return out
 
 
+def conv3x3_cuda(x, w):
+    """Launch K3 on x's current stream."""
+    global conv_launches
+    _check_conv(x, w)
+    _check_layout(x, (("x", x), ("w", w)))
+    lib = load_library("conv3x3", _SIGNATURES)
+    b, h, width, cin = x.shape
+    cout = w.shape[3]
+    out = torch.empty((b, h, width, cout), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.onedc_conv3x3(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h,
+                            width, cin, cout, int(x.dtype == torch.float32),
+                            stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3 launch failed: CUDA error {err}")
+    conv_launches += 1
+    return out
+
+
+def conv3x3_dx(g, w):
+    """The input gradient of conv3x3(x, w) for output gradient g (B, H, W,
+    Cout): K3 on the flipped weights on the card, the plain version on the
+    CPU."""
+    if g.is_cuda:
+        return conv3x3_cuda(g.contiguous(), flip_weights(w))
+    return conv3x3_dx_plain(g, w)
+
+
+def affine_silu_conv3x3_bwd(x, mul, add, w, g):
+    """Gradients (dx, dmul, dadd, dw, dbias) of affine_silu_conv3x3 for
+    output gradient g, as ``_gnsc_bwd`` (``pallas_conv.py:394-398``)
+    computes them through the unfused composition: the SiLU input recomputed
+    in f32, dt = conv3x3_dx(g, w) (K3 on the card), dw from torch, the chain
+    rule of the affine and the SiLU in plain torch."""
+    u = x.float() * mul[:, None, None, :] + add[:, None, None, :]
+    sig = torch.sigmoid(u)
+    t = (u * sig).to(x.dtype)
+    dt = conv3x3_dx(g, w)
+    du = dt.float() * (sig * (1 + u * (1 - sig)))
+    dx = (du * mul[:, None, None, :]).to(x.dtype)
+    dmul = (du * x.float()).sum((1, 2))
+    dadd = du.sum((1, 2))
+    dw = conv3x3_dw(t, g, list(w.shape)).to(w.dtype)
+    dbias = g.sum((0, 1, 2)).to(w.dtype)
+    return dx, dmul, dadd, dw, dbias
+
+
+class AffineSiluConv3x3(torch.autograd.Function):
+    """K2 with the backward of ``_gnsc_bwd`` (``affine_silu_conv3x3_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, mul, add, w, bias):
+        ctx.save_for_backward(x, mul, add, w)
+        if x.is_cuda:
+            return affine_silu_conv3x3_cuda(x, mul, add, w, bias)
+        return affine_silu_conv3x3_plain(x, mul, add, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mul, add, w = ctx.saved_tensors
+        return affine_silu_conv3x3_bwd(x, mul, add, w, g.contiguous())
+
+
 def affine_silu_conv3x3(x, mul, add, w, bias):
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, mul, add, w, bias)):
+        return AffineSiluConv3x3.apply(x, mul, add, w, bias)
     if x.is_cuda:
         return affine_silu_conv3x3_cuda(x, mul, add, w, bias)
     return affine_silu_conv3x3_plain(x, mul, add, w, bias)

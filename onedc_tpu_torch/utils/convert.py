@@ -11,9 +11,9 @@ Leaves convert as: conv kernel HWIO -> OIHW (a depthwise (3, 3, 1, C)
 kernel becomes (C, 1, 3, 3) by the same transpose); Dense kernel
 (in, out) -> (out, in); GroupNorm / LayerNorm ``scale`` -> ``weight``;
 ``bias`` as is; any other leaf raises. ``OneDC.load_state_dict(...,
-strict=True)`` then raises on any key left over on either side. The
-subtrees of the encode side, which this decode-only port does not hold
-yet, are named in ``ENCODE_SIDE`` and skipped.
+strict=True)`` then raises on any key left over on either side: every leaf
+of the tree, the encode side (``vae/encoder``, ``codec/enc``,
+``codec/hyper_enc``) included, must have its parameter in the port.
 """
 
 from __future__ import annotations
@@ -22,9 +22,6 @@ from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
-
-ENCODE_SIDE = ("vae/encoder/", "codec/enc/", "codec/hyper_enc/")
-
 
 def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
     for k, v in tree.items():
@@ -60,8 +57,6 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         params = params["params"]
     out: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
-        if path.startswith(ENCODE_SIDE):
-            continue
         key, arr = convert_leaf(path, np.asarray(value, np.float32))
         out[key] = torch.from_numpy(arr)
     return out

@@ -13,6 +13,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "onedc_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "onedc_tpu")
+TRAINING_MODULES = ("onedc_tpu_torch.entropy.bound", "onedc_tpu_torch.config",
+                    "onedc_tpu_torch.data.crops",
+                    "onedc_tpu_torch.train.losses",
+                    "onedc_tpu_torch.train.step",
+                    "onedc_tpu_torch.train.trainer")
 
 
 def test_import_loads_no_jax_and_no_onedc_tpu():
@@ -25,14 +30,16 @@ def test_import_loads_no_jax_and_no_onedc_tpu():
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
+        f"missing = [m for m in {TRAINING_MODULES!r} if m not in "
+        "sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith("
-        "'onedc_tpu_torch.')]), bad)\n")
+        "'onedc_tpu_torch.')]), missing, bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n_modules, bad = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 20
-    assert bad.strip() == "[]"
+    n_modules, rest = out.stdout.split(" ", 1)
+    assert int(n_modules) >= 27
+    assert rest.strip() == "[] []"  # the walk reached every training module
 
 
 def test_source_imports_nothing_of_the_jax_package():
@@ -53,6 +60,17 @@ def test_runtime_needs_the_card_unless_told_otherwise():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         OneDCRuntime(model)
     assert OneDCRuntime(model, device="cpu").device == torch.device("cpu")
+
+
+def test_trainer_needs_the_card_unless_told_otherwise():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from __graft_entry__ import _tiny_cfg
+    from onedc_tpu_torch.train.trainer import Trainer
+    cfg = {"allow_no_lpips": True, "model": _tiny_cfg()}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg)
+    assert Trainer(cfg, device="cpu").device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_a_card():
