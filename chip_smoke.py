@@ -53,12 +53,12 @@ import torch
 # round their operands to bf16 in shared memory (2^-9 relative each), the
 # plain version computes in f32. Besides, K1 and K1-bwd round the
 # probabilities (and dS) to bf16 before their second products, K2
-# evaluates the SiLU with the fast intrinsics (__expf, __fdividef), and all
-# sum in f32 in another order than the plain version. Each check also
-# shows its power: the plain version with one block iteration's work left
-# out (one 64-key tile for K1 and K1-bwd's dQ, one 64-query tile for
-# K1-bwd's dK and dV, one 32-channel input chunk for K2 and K3) must fail
-# it.
+# evaluates the SiLU with the fast intrinsics (bf16: tanh.approx, relative
+# error ~2^-11; f32: __expf, __fdividef), and all sum in f32 in another
+# order than the plain version. Each check also shows its power: the plain
+# version with one block iteration's work left out (one 64-key tile for K1
+# and K1-bwd's dQ, one 64-query tile for K1-bwd's dK and dV, one input
+# chunk for K2 and K3: 64 channels in bf16, 32 in f32) must fail it.
 REL_L2_TOL = 1e-2
 MAX_TOL = 2e-2
 # K1's row log-sum-exp against the plain one, absolute (it enters exp()
@@ -86,6 +86,10 @@ BATCH_MAX_TOL = 0.06
 
 H100_BF16_FLOPS = 989e12   # dense tensor-core peak, SXM data sheet
 H100_HBM_BYTES = 3.35e12   # bytes/s, SXM data sheet
+# exponentials/s of the special-function units: 16 per clock per SM, on
+# 132 SMs at 1.83 GHz, the clock at which the 989 TFLOP/s above is quoted
+# (989e12 / (132 SMs * 4096 bf16 FLOP per clock) = 1.83e9)
+H100_EXP_PER_S = 132 * 16 * 1.83e9
 
 # shapes the decode path gives the kernels, with their launches per decode
 # call of one bucket (768x768; K1 at /8 and /16, K2 in every VAE resnet);
@@ -185,11 +189,30 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_HBM_BYTES * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                 else "bytes")
+def bound_ms(flops: float, nbytes: float, exps: float = 0.0):
+    """The least time the card could take: the largest of the tensor-core
+    operations, the bytes and the exponentials over their peak rates, and
+    which of them it is."""
+    times = {"operations": flops / H100_BF16_FLOPS * 1e3,
+             "bytes": nbytes / H100_HBM_BYTES * 1e3,
+             "exponentials": exps / H100_EXP_PER_S * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by
+
+
+def attention_bound(b, n, h, d, itemsize, lse=False, backward=False):
+    """bound_ms of K1 (or K1-bwd) on (b, n, h, d) q, k, v with n keys: the
+    forward does 4*b*h*n*n*d FLOPs and b*h*n*n exponentials and moves q, k,
+    v, o (and the row LSE); the backward recomputes P once (the same
+    exponentials), does 10*b*h*n*n*d FLOPs and moves q, k, v, o, do, dq,
+    dk, dv and the LSE and di rows."""
+    exps = float(b) * h * n * n
+    if backward:
+        return bound_ms(10.0 * b * h * n * n * d,
+                        7 * b * n * h * d * itemsize + 2 * b * h * n * 4, exps)
+    return bound_ms(4.0 * b * h * n * n * d,
+                    4 * b * n * h * d * itemsize + (b * h * n * 4 if lse else 0),
+                    exps)
 
 
 # ---------------------------------------------------------------------------
@@ -316,7 +339,7 @@ def check_k1(gen: torch.Generator):
             plain = cuda_ms(lambda: k1.attention_plain(q, k, v, scale),
                             iters=3)
             lib = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
-            bnd, by = bound_ms(4.0 * b * h * n * n * d, 4 * b * n * h * d * 2)
+            bnd, by = attention_bound(b, n, h, d, 2)
             rows.append(dict(bucket=bucket, shape=[b, n, h, d], count=count,
                              **errs, ms=ms, plain_ms=plain, library_ms=lib,
                              bound_ms=bnd, bound_by=by))
@@ -344,7 +367,8 @@ def check_k2(gen: torch.Generator):
             out = k2.affine_silu_conv3x3(x, mul, add, w, bias)
             ref = k2.affine_silu_conv3x3_plain(x, mul, add, w, bias)
             w_skip = w.clone()
-            w_skip[:, :, :k2.CIN_MULTIPLE] = 0  # one input chunk left out
+            # one input chunk of the bf16 kernel left out
+            w_skip[:, :, :k2.BF16_CHANNEL_MULTIPLE] = 0
             mutant = k2.affine_silu_conv3x3_plain(x, mul, add, w_skip, bias)
             errs = compare(f"K2 {bucket} {(b, hh, ww, cin, cout)}", out, ref,
                            mutant)
@@ -429,8 +453,7 @@ def check_k1_train(gen: torch.Generator):
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
             del qt, kt, vt
-            bnd, by = bound_ms(4.0 * b * h * n * n * d,
-                               4 * b * n * h * d * 4 + b * h * n * 4)
+            bnd, by = attention_bound(b, n, h, d, 4, lse=True)
             fwd_rows.append(dict(bucket=bucket, shape=list(shape),
                                  count=count, **errs, ms=ms, plain_ms=plain,
                                  library_ms=lib, bound_ms=bnd, bound_by=by))
@@ -461,8 +484,7 @@ def check_k1_train(gen: torch.Generator):
             plain = cuda_ms(lambda: k1.attention_bwd_plain(
                 q, k, v, out, dout, lse, scale), iters=2, warmup=1)
             lib = cuda_ms(sdpa_bwd_timer(q, k, v, dout, scale))
-            bnd, by = bound_ms(10.0 * b * h * n * n * d,
-                               7 * b * n * h * d * 4 + 2 * b * h * n * 4)
+            bnd, by = attention_bound(b, n, h, d, 4, backward=True)
             bwd_rows.append(dict(
                 bucket=bucket, shape=list(shape), count=count,
                 max_abs_err=max(e["max_abs_err"] for e in all_errs),
@@ -588,8 +610,10 @@ def summarize(name, source, replaces, rows, launches, main_bucket):
 
     buckets = sorted({r["bucket"] for r in rows})
     main = [r for r in rows if r["bucket"] == main_bucket]
-    ops_share = sum(r["count"] * r["bound_ms"] for r in main
-                    if r["bound_by"] == "operations")
+    share = {}  # the main bucket's bound ms by what binds each shape
+    for r in main:
+        share[r["bound_by"]] = share.get(r["bound_by"], 0.0) \
+            + r["count"] * r["bound_ms"]
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": sum(launches.values()),
@@ -600,9 +624,7 @@ def summarize(name, source, replaces, rows, launches, main_bucket):
         "ms": total("ms", main_bucket),
         "plain_ms": total("plain_ms", main_bucket),
         "bound_ms": total("bound_ms", main_bucket),
-        "bound_by": ("operations"
-                     if ops_share >= total("bound_ms", main_bucket) / 2
-                     else "bytes"),
+        "bound_by": max(share, key=share.get),
         "library_ms": total("library_ms", main_bucket),
         "ms_of": main_bucket,
         "per_call": {bk: {**{key: total(key, bk) for key in

@@ -1,7 +1,12 @@
 """Build the port's native code from the package sources, at first use.
 
 - CUDA kernels: one ``nvcc`` per ``csrc/*.cu`` into a shared library with a
-  plain C interface for ``sm_90a`` (Hopper), loaded with ``ctypes``.
+  plain C interface for ``sm_90a`` (Hopper), loaded with ``ctypes``. The
+  bf16 kernels load their tiles by TMA from tensor maps that the library
+  encodes on the host with libcuda's ``cuTensorMapEncodeTiled``, reached
+  at run time through the runtime's ``cudaGetDriverEntryPoint``
+  (``cudaGetDriverEntryPointByVersion`` from CUDA 12.5; ``csrc/sm90.cuh``),
+  so no library links ``-lcuda``.
 - The rANS coder: ``g++`` on ``ops/cpp/onedc_rans.cpp``.
 
 Libraries land in ``build/onedc_tpu_torch/`` at the repository root (listed in

@@ -1,15 +1,18 @@
 """K2, fused GroupNorm-affine + SiLU + 3x3 conv, and K3, the plain 3x3
-conv: hand-written CUDA kernels (one template, ``csrc/conv3x3.cu``).
+conv: hand-written CUDA kernels (``csrc/conv3x3.cu``).
 
 JAX counterparts: ``onedc_tpu/ops/pallas_conv.py:404`` (``affine_silu_conv3x3``
 -> ``_gn_silu_conv_fused`` :369 -> ``_conv3x3_v2_single`` :292, body
 ``_kernel_v2`` :219) for K2, and ``:153 conv3x3_same`` (->
 ``_conv3x3_pallas_single`` :89, body ``_kernel`` :43) for K3. On the H100 the
 tensor cores bound both (18*H*W*Cin*Cout FLOPs, ~380 FLOP per byte at
-768x768x256->128 in bf16); the kernel is an implicit GEMM on ``mma.sync``
-bf16 that stages each input patch once per channel chunk (f32 operands
-rounded to bf16 there) and, for K2, applies the affine and the SiLU there,
-so the normalised tensor never reaches device memory.
+768x768x256->128 in bf16). Both are implicit GEMMs that stage each input
+patch once per channel chunk and, for K2, apply the affine and the SiLU
+there, so the normalised tensor never reaches device memory. bf16 K2 (the
+decode path) runs on ``wgmma`` with TMA loads (Cin and Cout multiples of
+64); f32 K2 (the training forward) and K3 (f32 only) on ``mma.sync`` bf16,
+rounding their f32 operands to bf16 as they stage them (Cin a multiple of
+32, Cout of 8).
 
 ``affine_silu_conv3x3(x, mul, add, w, bias)`` keeps the JAX signature and
 layouts: x (B, H, W, Cin) NHWC, mul/add (B, Cin) f32 (GroupNorm statistics
@@ -41,8 +44,10 @@ import torch.nn.functional as F
 
 from .build import load_library
 
+# channel multiples the kernels take: f32 (K2, K3) and bf16 (K2)
 CIN_MULTIPLE = 32
 COUT_MULTIPLE = 8
+BF16_CHANNEL_MULTIPLE = 64
 
 # launches of the CUDA kernels in this process (plain-version calls
 # excluded): K2 (``launches``) and K3 (``conv_launches``)
@@ -59,7 +64,7 @@ _SIGNATURES = {
         ctypes.c_void_p]),
     "onedc_conv3x3": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]),
 }
 
@@ -107,9 +112,9 @@ def conv3x3_dw(x, g, w_shape):
     return dw.permute(2, 3, 1, 0)
 
 
-def _check_conv(x, w, cin_multiple=CIN_MULTIPLE):
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"x and w must be both bf16 or both f32 (got "
+def _check_conv(x, w, dtypes=_DTYPES):
+    if x.dtype not in dtypes or w.dtype != x.dtype:
+        raise TypeError(f"x and w must be of one dtype of {dtypes} (got "
                         f"{x.dtype}, {w.dtype})")
     if x.dim() != 4:
         raise ValueError(f"x must be (B, H, W, Cin), got {tuple(x.shape)}")
@@ -118,9 +123,12 @@ def _check_conv(x, w, cin_multiple=CIN_MULTIPLE):
         raise ValueError(f"w must be (3, 3, {cin}, Cout), got "
                          f"{tuple(w.shape)}")
     cout = w.shape[3]
-    if cin % cin_multiple or cout % COUT_MULTIPLE:
-        raise ValueError(f"Cin {cin} must be a multiple of {cin_multiple} "
-                         f"and Cout {cout} of {COUT_MULTIPLE}")
+    cin_multiple, cout_multiple = (
+        (BF16_CHANNEL_MULTIPLE, BF16_CHANNEL_MULTIPLE)
+        if x.dtype == torch.bfloat16 else (CIN_MULTIPLE, COUT_MULTIPLE))
+    if cin % cin_multiple or cout % cout_multiple:
+        raise ValueError(f"{x.dtype}: Cin {cin} must be a multiple of "
+                         f"{cin_multiple} and Cout {cout} of {cout_multiple}")
 
 
 def _check_layout(x, named):
@@ -165,9 +173,9 @@ def affine_silu_conv3x3_cuda(x, mul, add, w, bias):
 
 
 def conv3x3_cuda(x, w):
-    """Launch K3 on x's current stream."""
+    """Launch K3 (f32) on x's current stream."""
     global conv_launches
-    _check_conv(x, w)
+    _check_conv(x, w, (torch.float32,))
     _check_layout(x, (("x", x), ("w", w)))
     lib = load_library("conv3x3", _SIGNATURES)
     b, h, width, cin = x.shape
@@ -175,8 +183,7 @@ def conv3x3_cuda(x, w):
     out = torch.empty((b, h, width, cout), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.onedc_conv3x3(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h,
-                            width, cin, cout, int(x.dtype == torch.float32),
-                            stream)
+                            width, cin, cout, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 launch failed: CUDA error {err}")
     conv_launches += 1

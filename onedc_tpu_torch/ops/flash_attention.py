@@ -6,11 +6,14 @@ which calls the Pallas TPU kernels of ``jax.experimental.pallas.ops.tpu.
 flash_attention``: the forward ``_flash_attention_impl`` :589 and, under
 ``grad``, ``_flash_attention_bwd_dkv`` :941 and ``_flash_attention_bwd_dq``
 :1287). Kernel sources: ``onedc_tpu_torch/csrc/flash_attention.cu`` and
-``csrc/flash_attention_bwd.cu``. On the H100 the tensor cores bound both
-(4*N*M*H*D FLOPs forward, ~14*N*M*H*D backward, on O(N*H*D) bytes at the
-UNet's shapes); the kernels keep every product on ``mma.sync`` bf16 with f32
-accumulation and the probabilities in registers, so the N x M scores never
-reach device memory, and pad D inside shared memory, not in HBM.
+``csrc/flash_attention_bwd.cu``. On the H100 the tensor cores and, at small
+head dims, the exponential unit bound them (4*N*M*H*D FLOPs and N*M*H
+exponentials forward, ~14*N*M*H*D FLOPs backward, on O(N*H*D) bytes at the
+UNet's shapes). Both keep the probabilities in registers, so the N x M
+scores never reach device memory, and pad D inside shared memory, not in
+HBM. The bf16 forward (the decode path) runs on ``wgmma`` with TMA loads
+(D a multiple of 8, at most 160, as the f32 one); the f32 forward (training, with the row
+log-sum-exp) and the backward on ``mma.sync`` bf16 with f32 accumulation.
 
 ``flash_attention(q, k, v, scale)`` takes (B, N, H, D), (B, M, H, D),
 (B, M, H, D) tensors of one dtype, bf16 or f32 (f32 operands are rounded to

@@ -1,9 +1,10 @@
 """The modules that hold the port's two kernels, against the JAX package on
 the CPU (where every wrapper takes its plain version): attention dispatch
 (K1) and the fused GroupNorm-affine + SiLU + 3x3 conv (K2), plus the
-wrapper checks that run before a launch. The kernels themselves run only
-on the card: ``test_kernels_on_card`` holds each against its plain version
-there and skips here."""
+wrapper checks that run before a launch and the bound ``chip_smoke.py``
+holds K1 against. The kernels themselves run only on the card:
+``test_kernels_on_card`` holds each against its plain version there and
+skips here; no test here launches a kernel."""
 
 import jax
 import jax.numpy as jnp
@@ -88,16 +89,28 @@ def test_vae_resnet_block_matches_jax(cin, cout):
     assert k2.launches == before
 
 
-def _k2_args(b=1, h=4, w=4, cin=32, cout=8, dtype=torch.bfloat16):
+def _k2_args(b=1, h=4, w=4, cin=64, cout=64, dtype=torch.bfloat16):
     return (torch.zeros((b, h, w, cin), dtype=dtype),
             torch.ones((b, cin)), torch.zeros((b, cin)),
             torch.zeros((3, 3, cin, cout), dtype=dtype),
             torch.zeros((cout,), dtype=dtype))
 
 
+def _misaligned(t):
+    """t's values in a contiguous tensor whose data starts 2 bytes past a
+    16-byte boundary."""
+    flat = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:]
+    return flat.view(t.shape)
+
+
 @pytest.mark.parametrize("bad", ["dtype", "cin", "cout", "mul_shape",
-                                 "strided", "mul_dtype"])
+                                 "strided", "mul_dtype", "cin_bf16",
+                                 "cout_bf16", "w_dtype", "bias_dtype",
+                                 "misaligned"])
 def test_k2_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """bf16 (the wgmma kernel) takes Cin and Cout in multiples of 64; f32
+    (the mma.sync kernel) Cin in multiples of 32 and Cout of 8; both one
+    dtype throughout and contiguous, 16-byte aligned tensors."""
     x, mul, add, w, bias = _k2_args()
     if bad == "dtype":
         x = x.float()
@@ -108,16 +121,41 @@ def test_k2_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "mul_shape":
         mul = mul[:, :16]
     elif bad == "strided":
-        x = torch.zeros((1, 4, 8, 32), dtype=torch.bfloat16)[:, :, ::2]
+        x = torch.zeros((1, 4, 8, 64), dtype=torch.bfloat16)[:, :, ::2]
     elif bad == "mul_dtype":
         mul = mul.to(torch.bfloat16)
+    elif bad == "cin_bf16":  # the f32 kernel takes Cin 96, bf16 does not
+        k2._check(*_k2_args(cin=96, dtype=torch.float32))
+        x, mul, add, w, bias = _k2_args(cin=96)
+    elif bad == "cout_bf16":  # the f32 kernel takes Cout 32, bf16 does not
+        k2._check(*_k2_args(cout=32, dtype=torch.float32))
+        x, mul, add, w, bias = _k2_args(cout=32)
+    elif bad == "w_dtype":
+        w = w.float()
+    elif bad == "bias_dtype":
+        bias = bias.float()
+    elif bad == "misaligned":
+        x = _misaligned(x)
     with pytest.raises((TypeError, ValueError)):
         k2._check(x, mul, add, w, bias)
     k2._check(*_k2_args())  # the good case passes
 
 
-@pytest.mark.parametrize("bad", ["dtype", "head_dim", "mismatch", "strided"])
+def test_k3_wrapper_takes_f32_only():
+    """K3 (the input gradient of the f32 training conv) has no bf16
+    kernel; its wrapper says so before a launch."""
+    x, _, _, w, _ = _k2_args()
+    with pytest.raises(TypeError):
+        k2._check_conv(x, w, (torch.float32,))
+    k2._check_conv(x.float(), w.float(), (torch.float32,))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "mismatch", "strided",
+                                 "head_dim_odd", "misaligned"])
 def test_k1_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """The forward kernels take head dims in multiples of 8 up to 160; q,
+    k, v of one dtype, contiguous and 16-byte aligned (the rule of the bf16
+    kernel's TMA tensor maps)."""
     def t(*s):
         return torch.zeros(s, dtype=torch.bfloat16)
     q, k, v = t(1, 64, 2, 40), t(1, 32, 2, 40), t(1, 32, 2, 40)
@@ -129,9 +167,30 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k = t(1, 32, 3, 40)
     elif bad == "strided":
         q = t(1, 64, 2, 80)[..., ::2]
+    elif bad == "head_dim_odd":
+        q, k, v = t(1, 64, 2, 36), t(1, 32, 2, 36), t(1, 32, 2, 36)
+    elif bad == "misaligned":
+        v = _misaligned(v)
     with pytest.raises((TypeError, ValueError)):
         k1._check(q, k, v)
     k1._check(t(1, 64, 2, 40), t(1, 32, 2, 40), t(1, 32, 2, 40))
+
+
+@pytest.mark.parametrize("shape,by,ms", [
+    ((1, 9216, 8, 40), "exponentials", 0.17578),
+    ((1, 2304, 8, 80), "operations", 0.013741),
+])
+def test_k1_bound_counts_the_exponentials(shape, by, ms):
+    """chip_smoke.py's bound of K1 at the decode's two shapes: N*N*H
+    exponentials at 16 per clock per SM bind D = 40; the tensor cores bind
+    D = 80. A 768x768 decode's K1 bound is 5 x 0.1758 + 5 x 0.0137 ms."""
+    import chip_smoke as cs
+    bnd, got = cs.attention_bound(*shape, 2)
+    assert (got, bnd) == (by, pytest.approx(ms, rel=1e-3))
+    # the backward recomputes P once: the same exponentials, 2.5x the FLOPs
+    b, n, h, _ = shape
+    bwd, _ = cs.attention_bound(*shape, 4, backward=True)
+    assert bwd >= cs.bound_ms(0.0, 0.0, float(b) * h * n * n)[0]
 
 
 @pytest.fixture
@@ -174,18 +233,29 @@ def _within(out, ref, rel_l2=1e-2, rel_max=2e-2):
 
 @pytest.mark.cuda
 def test_kernels_on_card(cuda_device):
-    """K1 and K2 against their plain versions on the card (bf16)."""
+    """K1 and K2 against their plain versions on the card, bf16 (the wgmma
+    kernels; ragged sequence lengths and image edges, Cout 64 and 128, the
+    row log-sum-exp) and f32."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*s):
         return torch.randn(s, generator=g, device=cuda_device)
 
-    q, k, v = (rnd(1, 2304, 8, 80).to(torch.bfloat16) for _ in range(3))
-    out = k1.flash_attention(q, k, v, 80 ** -0.5)
-    assert _within(out, k1.attention_plain(q, k, v, 80 ** -0.5))
-    x = rnd(2, 24, 40, 64).to(torch.bfloat16)
-    mul, add = 1 + 0.1 * rnd(2, 64), 0.1 * rnd(2, 64)
-    w = (rnd(3, 3, 64, 32) / 24).to(torch.bfloat16)
-    bias = (0.1 * rnd(32)).to(torch.bfloat16)
-    out = k2.affine_silu_conv3x3(x, mul, add, w, bias)
-    assert _within(out, k2.affine_silu_conv3x3_plain(x, mul, add, w, bias))
+    for (b, n, h, d) in [(1, 2304, 8, 80), (2, 300, 2, 40), (1, 200, 1, 160)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (rnd(b, n, h, d).to(dtype) for _ in range(3))
+            out, lse = k1.flash_attention_cuda(q, k, v, d ** -0.5,
+                                               with_lse=True)
+            assert _within(out, k1.attention_plain(q, k, v, d ** -0.5))
+            lse_ref = k1.attention_lse_plain(q, k, d ** -0.5)
+            assert (lse - lse_ref).abs().max() <= 2e-2
+    for (b, h, w_, cin, cout) in [(2, 24, 40, 64, 64), (1, 20, 36, 128, 128),
+                                  (1, 48, 48, 256, 192)]:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = rnd(b, h, w_, cin).to(dtype)
+            mul, add = 1 + 0.1 * rnd(b, cin), 0.1 * rnd(b, cin)
+            w = (rnd(3, 3, cin, cout) / (9 * cin) ** 0.5).to(dtype)
+            bias = (0.1 * rnd(cout)).to(dtype)
+            out = k2.affine_silu_conv3x3(x, mul, add, w, bias)
+            assert _within(out, k2.affine_silu_conv3x3_plain(x, mul, add, w,
+                                                             bias))
