@@ -10,9 +10,10 @@
    the tolerance stated below: K1 (flash attention forward), K1-bwd (its
    backward), K2 (GN-affine + SiLU + conv3x3) and K3 (conv3x3, K2's input
    gradient), and K2's autograd backward against autograd of its plain
-   version; CUDA event times of the kernel, the plain version and one
-   PyTorch library call for the same function; the card's bound for the
-   same work.
+   version; CUDA event times of the kernel (through its wrapper), the
+   plain version and one PyTorch library call for the same function (for
+   the f32 convs also cuDNN in bf16 on the bf16-rounded operands, the
+   arithmetic K2 f32 and K3 do); the card's bound for the same work.
 4. Decode path: the full-width OneDC (lambda family: codec 512/128, FSQ
    [4]*7, SD1.5 UNet, SD2.1 VAE) on weights drawn from a seeded
    generator, in bf16. Writes two 768x768 streams and one 512x768 stream
@@ -58,7 +59,7 @@ import torch
 # order than the plain version. Each check also shows its power: the plain
 # version with one block iteration's work left out (one 64-key tile for K1
 # and K1-bwd's dQ, one 64-query tile for K1-bwd's dK and dV, one input
-# chunk for K2 and K3: 64 channels in bf16, 32 in f32) must fail it.
+# chunk for K2 and K3: 64 channels) must fail it.
 REL_L2_TOL = 1e-2
 MAX_TOL = 2e-2
 # K1's row log-sum-exp against the plain one, absolute (it enters exp()
@@ -368,7 +369,7 @@ def check_k2(gen: torch.Generator):
             ref = k2.affine_silu_conv3x3_plain(x, mul, add, w, bias)
             w_skip = w.clone()
             # one input chunk of the bf16 kernel left out
-            w_skip[:, :, :k2.BF16_CHANNEL_MULTIPLE] = 0
+            w_skip[:, :, :k2.CHANNEL_MULTIPLE] = 0
             mutant = k2.affine_silu_conv3x3_plain(x, mul, add, w_skip, bias)
             errs = compare(f"K2 {bucket} {(b, hh, ww, cin, cout)}", out, ref,
                            mutant)
@@ -520,17 +521,23 @@ def _conv_bound(b, hh, ww, cin, cout, itemsize, affine):
 
 def check_k2_k3_train(gen: torch.Generator):
     """K2 and K3 in f32 at the training shapes, and K2's autograd backward
-    against autograd of its plain version: (K2 rows, K3 rows)."""
+    against autograd of its plain version: (K2 rows, K3 rows). Each kernel
+    is timed through its wrapper, with the bf16 weight copy it makes per
+    launch; beside it cuDNN twice: in f32 (TF32 off), the same function,
+    and in bf16 on the bf16-rounded operands (channels_last), the arithmetic
+    the kernels do."""
     from onedc_tpu_torch.ops import conv3x3 as k2
 
     conv = torch.nn.functional.conv2d
+    bf16 = torch.bfloat16
+    chunk = k2.CHANNEL_MULTIPLE
     k2_rows, k3_rows = [], []
     for bucket, shapes in K2_TRAIN_SHAPES.items():
         for shape, count in shapes:
             x, mul, add, w, bias = _conv_inputs(gen, *shape)
             tag = f"{bucket} {shape}"
             w_skip = w.clone()
-            w_skip[:, :, :k2.CIN_MULTIPLE] = 0  # one input chunk left out
+            w_skip[:, :, :chunk] = 0  # one input chunk left out
             errs = compare(
                 f"K2 f32 {tag}", k2.affine_silu_conv3x3_cuda(x, mul, add, w,
                                                              bias),
@@ -547,37 +554,49 @@ def check_k2_k3_train(gen: torch.Generator):
             plain = cuda_ms(lambda: k2.affine_silu_conv3x3_plain(
                 x, mul, add, w, bias), iters=3)
             lib = cuda_ms(lambda: conv(t, w_oihw, bias, padding=1))
+            t, w_oihw, bias_b = t.to(bf16), w_oihw.to(bf16), bias.to(bf16)
+            lib_bf16 = cuda_ms(lambda: conv(t, w_oihw, bias_b, padding=1))
             bnd, by = _conv_bound(*shape, 4, True)
             k2_rows.append(dict(bucket=bucket, shape=list(shape), count=count,
                                 **errs, ms=ms, plain_ms=plain,
-                                library_ms=lib, bound_ms=bnd, bound_by=by))
+                                library_ms=lib, library_bf16_ms=lib_bf16,
+                                bound_ms=bnd, bound_by=by))
             print(f"K2 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
-                  f"{plain:.4f} cudnn {lib:.4f} bound {bnd:.4f} ({by})",
-                  flush=True)
-            del x, mul, add, w, bias, t, w_oihw
+                  f"{plain:.4f} cudnn {lib:.4f} cudnn-bf16 {lib_bf16:.4f} "
+                  f"bound {bnd:.4f} ({by})", flush=True)
+            del x, mul, add, w, bias, t, w_oihw, bias_b
     for bucket, shapes in K3_TRAIN_SHAPES.items():
         for shape, count in shapes:
-            x, _, _, w, _ = _conv_inputs(gen, *shape)
+            # K3's (B, H, W, Cin -> Cout): the input gradient g (B, H, W,
+            # Cin) of a forward conv Cout -> Cin with weights w
+            b, hh, ww, cin, cout = shape
+            g = torch.randn((b, hh, ww, cin), generator=gen, device="cuda")
+            w = (torch.randn((3, 3, cout, cin), generator=gen, device="cuda")
+                 / (9 * cin) ** 0.5)
             tag = f"{bucket} {shape}"
             w_skip = w.clone()
-            w_skip[:, :, :k2.CIN_MULTIPLE] = 0
-            errs = compare(f"K3 f32 {tag}", k2.conv3x3_cuda(x, w),
-                           k2.conv3x3_plain(x, w), k2.conv3x3_plain(x, w_skip))
+            w_skip[..., :chunk] = 0  # one chunk of g's channels left out
+            errs = compare(f"K3 f32 {tag}", k2.conv3x3_dx_cuda(g, w),
+                           k2.conv3x3_dx_plain(g, w),
+                           k2.conv3x3_dx_plain(g, w_skip))
             del w_skip
-            x_cl = x.permute(0, 3, 1, 2)
-            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+            g_cl = g.permute(0, 3, 1, 2)
+            w_oihw = k2.flip_weights(w).permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
-            ms = cuda_ms(lambda: k2.conv3x3_cuda(x, w))
-            plain = cuda_ms(lambda: k2.conv3x3_plain(x, w), iters=3)
-            lib = cuda_ms(lambda: conv(x_cl, w_oihw, padding=1))
+            ms = cuda_ms(lambda: k2.conv3x3_dx_cuda(g, w))
+            plain = cuda_ms(lambda: k2.conv3x3_dx_plain(g, w), iters=3)
+            lib = cuda_ms(lambda: conv(g_cl, w_oihw, padding=1))
+            g_cl, w_oihw = g_cl.to(bf16), w_oihw.to(bf16)
+            lib_bf16 = cuda_ms(lambda: conv(g_cl, w_oihw, padding=1))
             bnd, by = _conv_bound(*shape, 4, False)
             k3_rows.append(dict(bucket=bucket, shape=list(shape), count=count,
                                 **errs, ms=ms, plain_ms=plain,
-                                library_ms=lib, bound_ms=bnd, bound_by=by))
+                                library_ms=lib, library_bf16_ms=lib_bf16,
+                                bound_ms=bnd, bound_by=by))
             print(f"K3 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
-                  f"{plain:.4f} cudnn {lib:.4f} bound {bnd:.4f} ({by})",
-                  flush=True)
-            del x, w, x_cl, w_oihw
+                  f"{plain:.4f} cudnn {lib:.4f} cudnn-bf16 {lib_bf16:.4f} "
+                  f"bound {bnd:.4f} ({by})", flush=True)
+            del g, w, g_cl, w_oihw
     names = ("dx", "dmul", "dadd", "dw", "dbias")
     for shape in K2_BWD_SHAPES:
         inputs = [t.requires_grad_() for t in _conv_inputs(gen, *shape)]
@@ -628,7 +647,10 @@ def summarize(name, source, replaces, rows, launches, main_bucket):
         "library_ms": total("library_ms", main_bucket),
         "ms_of": main_bucket,
         "per_call": {bk: {**{key: total(key, bk) for key in
-                             ("ms", "plain_ms", "bound_ms", "library_ms")},
+                             ("ms", "plain_ms", "bound_ms", "library_ms",
+                              "library_bf16_ms")
+                             if all(key in r for r in rows
+                                    if r["bucket"] == bk)},
                           "count": sum(r["count"] for r in rows
                                        if r["bucket"] == bk)}
                      for bk in buckets},

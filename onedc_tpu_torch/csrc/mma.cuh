@@ -118,13 +118,4 @@ __device__ __forceinline__ void store2(T* p, float a, float b) {
   }
 }
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T v) {
-  if constexpr (kIsBf16<T>) {
-    return __bfloat162float(v);
-  } else {
-    return v;
-  }
-}
-
 }  // namespace onedc

@@ -6,13 +6,14 @@ JAX counterparts: ``onedc_tpu/ops/pallas_conv.py:404`` (``affine_silu_conv3x3``
 ``_kernel_v2`` :219) for K2, and ``:153 conv3x3_same`` (->
 ``_conv3x3_pallas_single`` :89, body ``_kernel`` :43) for K3. On the H100 the
 tensor cores bound both (18*H*W*Cin*Cout FLOPs, ~380 FLOP per byte at
-768x768x256->128 in bf16). Both are implicit GEMMs that stage each input
-patch once per channel chunk and, for K2, apply the affine and the SiLU
-there, so the normalised tensor never reaches device memory. bf16 K2 (the
-decode path) runs on ``wgmma`` with TMA loads (Cin and Cout multiples of
-64); f32 K2 (the training forward) and K3 (f32 only) on ``mma.sync`` bf16,
-rounding their f32 operands to bf16 as they stage them (Cin a multiple of
-32, Cout of 8).
+768x768x256->128 in bf16). Both are implicit GEMMs on ``wgmma`` that stage
+each input patch once per 64-channel chunk, as bf16, and, for K2, apply the
+affine and the SiLU there, so the normalised tensor never reaches device
+memory; the weights come by TMA from a bf16 (9*Cin, Cout) view. bf16 K2
+(the decode path) loads its patches by TMA; f32 K2 (the training forward)
+and K3 (f32 only) load f32 and round it to bf16 as they stage it, and the
+wrapper rounds the f32 weights to a bf16 copy per launch. Cin and Cout
+multiples of 64 in both dtypes.
 
 ``affine_silu_conv3x3(x, mul, add, w, bias)`` keeps the JAX signature and
 layouts: x (B, H, W, Cin) NHWC, mul/add (B, Cin) f32 (GroupNorm statistics
@@ -26,8 +27,9 @@ from K3 and its weight gradient from torch (the JAX package computes dw in
 XLA too, :174-178), and the affine and SiLU chain rule in plain torch.
 
 K3 enters the port as ``conv3x3_dx(g, w)``, the input gradient of the
-custom VJP of ``pallas_conv.py:152-182``: K3 on spatially flipped,
-in/out-transposed weights.
+custom VJP of ``pallas_conv.py:152-182``: the conv of g with spatially
+flipped, in/out-transposed weights. The wrapper transposes and rounds w in
+one pass (``dx_weights``); the kernel reads the taps in flipped order.
 
 For CUDA tensors each wrapper launches its kernel (or raises on what the
 kernel does not take); for CPU tensors it computes the plain version
@@ -44,10 +46,8 @@ import torch.nn.functional as F
 
 from .build import load_library
 
-# channel multiples the kernels take: f32 (K2, K3) and bf16 (K2)
-CIN_MULTIPLE = 32
-COUT_MULTIPLE = 8
-BF16_CHANNEL_MULTIPLE = 64
+# the channel multiple of Cin and Cout the kernels take (one input chunk)
+CHANNEL_MULTIPLE = 64
 
 # launches of the CUDA kernels in this process (plain-version calls
 # excluded): K2 (``launches``) and K3 (``conv_launches``)
@@ -96,6 +96,15 @@ def flip_weights(w):
     return w.flip(0, 1).transpose(2, 3).contiguous()
 
 
+def dx_weights(w):
+    """K3's weights for the forward weights w (3, 3, Cin, Cout), f32: w
+    transposed to (3, 3, Cout, Cin) and rounded to bf16 in one pass, NOT
+    flipped; the kernel reads tap t from tap 8 - t, so it convolves with
+    ``flip_weights(w)`` rounded to bf16."""
+    return w.transpose(2, 3).to(torch.bfloat16,
+                                memory_format=torch.contiguous_format)
+
+
 def conv3x3_dx_plain(g, w):
     """The input gradient of ``conv3x3_plain(x, w)`` for output gradient g,
     as K3 computes it: conv3x3 of g with the flipped weights."""
@@ -123,12 +132,9 @@ def _check_conv(x, w, dtypes=_DTYPES):
         raise ValueError(f"w must be (3, 3, {cin}, Cout), got "
                          f"{tuple(w.shape)}")
     cout = w.shape[3]
-    cin_multiple, cout_multiple = (
-        (BF16_CHANNEL_MULTIPLE, BF16_CHANNEL_MULTIPLE)
-        if x.dtype == torch.bfloat16 else (CIN_MULTIPLE, COUT_MULTIPLE))
-    if cin % cin_multiple or cout % cout_multiple:
-        raise ValueError(f"{x.dtype}: Cin {cin} must be a multiple of "
-                         f"{cin_multiple} and Cout {cout} of {cout_multiple}")
+    if cin % CHANNEL_MULTIPLE or cout % CHANNEL_MULTIPLE:
+        raise ValueError(f"Cin {cin} and Cout {cout} must be multiples of "
+                         f"{CHANNEL_MULTIPLE}")
 
 
 def _check_layout(x, named):
@@ -154,35 +160,40 @@ def _check(x, mul, add, w, bias):
 
 
 def affine_silu_conv3x3_cuda(x, mul, add, w, bias):
-    """Launch K2 on x's current stream."""
+    """Launch K2 on x's current stream (f32: on a bf16 copy of w)."""
     global launches
     _check(x, mul, add, w, bias)
     lib = load_library("conv3x3", _SIGNATURES)
     b, h, width, cin = x.shape
     cout = w.shape[3]
+    f32 = x.dtype == torch.float32
+    wk = w.to(torch.bfloat16) if f32 else w
     out = torch.empty((b, h, width, cout), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.onedc_gn_silu_conv3x3(
-        x.data_ptr(), mul.data_ptr(), add.data_ptr(), w.data_ptr(),
-        bias.data_ptr(), out.data_ptr(), b, h, width, cin, cout,
-        int(x.dtype == torch.float32), stream)
+        x.data_ptr(), mul.data_ptr(), add.data_ptr(), wk.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), b, h, width, cin, cout, int(f32),
+        stream)
     if err != 0:
         raise RuntimeError(f"gn_silu_conv3x3 launch failed: CUDA error {err}")
     launches += 1
     return out
 
 
-def conv3x3_cuda(x, w):
-    """Launch K3 (f32) on x's current stream."""
+def conv3x3_dx_cuda(g, w):
+    """Launch K3 (f32) on g's current stream: the input gradient of
+    conv3x3(x, w) for output gradient g (B, H, W, Cout), w (3, 3, Cin,
+    Cout)."""
     global conv_launches
-    _check_conv(x, w, (torch.float32,))
-    _check_layout(x, (("x", x), ("w", w)))
+    _check_conv(g, w.transpose(2, 3), (torch.float32,))
+    _check_layout(g, (("g", g), ("w", w)))
     lib = load_library("conv3x3", _SIGNATURES)
-    b, h, width, cin = x.shape
-    cout = w.shape[3]
-    out = torch.empty((b, h, width, cout), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.onedc_conv3x3(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h,
+    b, h, width, cin = g.shape
+    cout = w.shape[2]
+    wk = dx_weights(w)
+    out = torch.empty((b, h, width, cout), dtype=g.dtype, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = lib.onedc_conv3x3(g.data_ptr(), wk.data_ptr(), out.data_ptr(), b, h,
                             width, cin, cout, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 launch failed: CUDA error {err}")
@@ -192,10 +203,9 @@ def conv3x3_cuda(x, w):
 
 def conv3x3_dx(g, w):
     """The input gradient of conv3x3(x, w) for output gradient g (B, H, W,
-    Cout): K3 on the flipped weights on the card, the plain version on the
-    CPU."""
+    Cout): K3 on the card, the plain version on the CPU."""
     if g.is_cuda:
-        return conv3x3_cuda(g.contiguous(), flip_weights(w))
+        return conv3x3_dx_cuda(g.contiguous(), w)
     return conv3x3_dx_plain(g, w)
 
 

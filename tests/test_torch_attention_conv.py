@@ -105,12 +105,11 @@ def _misaligned(t):
 
 @pytest.mark.parametrize("bad", ["dtype", "cin", "cout", "mul_shape",
                                  "strided", "mul_dtype", "cin_bf16",
-                                 "cout_bf16", "w_dtype", "bias_dtype",
-                                 "misaligned"])
+                                 "cout_bf16", "cin_f32", "cout_f32",
+                                 "w_dtype", "bias_dtype", "misaligned"])
 def test_k2_wrapper_rejects_what_the_kernel_does_not_take(bad):
-    """bf16 (the wgmma kernel) takes Cin and Cout in multiples of 64; f32
-    (the mma.sync kernel) Cin in multiples of 32 and Cout of 8; both one
-    dtype throughout and contiguous, 16-byte aligned tensors."""
+    """Both kernels (bf16 and f32, on wgmma) take Cin and Cout in multiples
+    of 64, one dtype throughout and contiguous, 16-byte aligned tensors."""
     x, mul, add, w, bias = _k2_args()
     if bad == "dtype":
         x = x.float()
@@ -124,12 +123,14 @@ def test_k2_wrapper_rejects_what_the_kernel_does_not_take(bad):
         x = torch.zeros((1, 4, 8, 64), dtype=torch.bfloat16)[:, :, ::2]
     elif bad == "mul_dtype":
         mul = mul.to(torch.bfloat16)
-    elif bad == "cin_bf16":  # the f32 kernel takes Cin 96, bf16 does not
-        k2._check(*_k2_args(cin=96, dtype=torch.float32))
+    elif bad == "cin_bf16":
         x, mul, add, w, bias = _k2_args(cin=96)
-    elif bad == "cout_bf16":  # the f32 kernel takes Cout 32, bf16 does not
-        k2._check(*_k2_args(cout=32, dtype=torch.float32))
+    elif bad == "cout_bf16":
         x, mul, add, w, bias = _k2_args(cout=32)
+    elif bad == "cin_f32":  # the f32 mma.sync kernel took Cin 96
+        x, mul, add, w, bias = _k2_args(cin=96, dtype=torch.float32)
+    elif bad == "cout_f32":  # ... and Cout 32
+        x, mul, add, w, bias = _k2_args(cout=32, dtype=torch.float32)
     elif bad == "w_dtype":
         w = w.float()
     elif bad == "bias_dtype":
@@ -138,16 +139,52 @@ def test_k2_wrapper_rejects_what_the_kernel_does_not_take(bad):
         x = _misaligned(x)
     with pytest.raises((TypeError, ValueError)):
         k2._check(x, mul, add, w, bias)
-    k2._check(*_k2_args())  # the good case passes
+    k2._check(*_k2_args())  # the good cases pass
+    k2._check(*_k2_args(cin=128, cout=192, dtype=torch.float32))
 
 
 def test_k3_wrapper_takes_f32_only():
     """K3 (the input gradient of the f32 training conv) has no bf16
-    kernel; its wrapper says so before a launch."""
+    kernel, and takes channels in multiples of 64 as K2; its wrapper says
+    so before a launch."""
     x, _, _, w, _ = _k2_args()
     with pytest.raises(TypeError):
         k2._check_conv(x, w, (torch.float32,))
+    with pytest.raises(ValueError):
+        k2._check_conv(x.float(), w[..., :32].float().contiguous(),
+                       (torch.float32,))
     k2._check_conv(x.float(), w.float(), (torch.float32,))
+
+
+def test_k3_weight_copy_is_the_flipped_weights_in_bf16():
+    """K3's one-pass weight copy (transposed and rounded, not flipped),
+    read in the kernel's flipped tap order, is exactly
+    ``flip_weights(w)`` rounded to bf16, and a contiguous (3, 3, Cout,
+    Cin) tensor, as the kernel's TMA tensor map needs."""
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 64, 128)).astype(
+        np.float32))
+    wk = k2.dx_weights(w)
+    assert wk.dtype == torch.bfloat16 and wk.shape == (3, 3, 128, 64)
+    assert wk.is_contiguous()
+    assert torch.equal(wk.flip(0, 1), k2.flip_weights(w).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape,affine,by,ms", [
+    # 2*2*64*64*512*512*9 FLOP / 989e12; bytes 2*64*64*1024*4 + 9*512*512*4
+    # + 2*2*512*4 + 512*4 = 43,001,856 / 3.35e12 (0.012836 ms)
+    ((2, 64, 64, 512, 512), True, "operations", 38654705664 / 989e12 * 1e3),
+    # 154,618,822,656 FLOP (0.156339 ms); bytes 2*512*512*256*4 +
+    # 9*128*128*4 = 537,460,736: f32 x and out bind the 128-channel level
+    ((2, 512, 512, 128, 128), False, "bytes", 537460736 / 3.35e12 * 1e3),
+])
+def test_f32_conv_bound_by_hand(shape, affine, by, ms):
+    """chip_smoke.py's bound of f32 K2 / K3 at two ``train512`` shapes:
+    bf16 tensor-core FLOPs (the kernels round their operands to bf16)
+    against f32 bytes of x, w, out (and mul, add, bias for K2)."""
+    import chip_smoke as cs
+    bnd, got = cs._conv_bound(*shape, 4, affine)
+    assert (got, bnd) == (by, pytest.approx(ms, rel=1e-9))
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "mismatch", "strided",
@@ -233,9 +270,9 @@ def _within(out, ref, rel_l2=1e-2, rel_max=2e-2):
 
 @pytest.mark.cuda
 def test_kernels_on_card(cuda_device):
-    """K1 and K2 against their plain versions on the card, bf16 (the wgmma
-    kernels; ragged sequence lengths and image edges, Cout 64 and 128, the
-    row log-sum-exp) and f32."""
+    """K1, K2 and K3 against their plain versions on the card, bf16 and
+    f32 (ragged sequence lengths and image edges, Cout 64, 128 and 192, the
+    row log-sum-exp)."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*s):
@@ -250,7 +287,7 @@ def test_kernels_on_card(cuda_device):
             lse_ref = k1.attention_lse_plain(q, k, d ** -0.5)
             assert (lse - lse_ref).abs().max() <= 2e-2
     for (b, h, w_, cin, cout) in [(2, 24, 40, 64, 64), (1, 20, 36, 128, 128),
-                                  (1, 48, 48, 256, 192)]:
+                                  (1, 20, 36, 64, 192), (1, 48, 48, 256, 192)]:
         for dtype in (torch.bfloat16, torch.float32):
             x = rnd(b, h, w_, cin).to(dtype)
             mul, add = 1 + 0.1 * rnd(b, cin), 0.1 * rnd(b, cin)
@@ -259,3 +296,7 @@ def test_kernels_on_card(cuda_device):
             out = k2.affine_silu_conv3x3(x, mul, add, w, bias)
             assert _within(out, k2.affine_silu_conv3x3_plain(x, mul, add, w,
                                                              bias))
+        # K3: the input gradient (b, h, w_, cin -> cout) of a conv cout ->
+        # cin
+        g, w = rnd(b, h, w_, cin), rnd(3, 3, cout, cin) / (9 * cin) ** 0.5
+        assert _within(k2.conv3x3_dx_cuda(g, w), k2.conv3x3_dx_plain(g, w))

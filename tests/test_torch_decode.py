@@ -40,6 +40,18 @@ def port_rt():
     return OneDCRuntime(port_model(), device="cpu")
 
 
+@pytest.fixture(scope="module")
+def port_decodes(jax_side, port_rt):
+    """The port's traced single decode of each stream: [(image, trace)],
+    computed once for the tests that hold it against JAX and against the
+    batched decode."""
+    out = []
+    for stream in jax_side[1]:
+        trace = {}
+        out.append((port_rt.decode(stream, trace), trace))
+    return out
+
+
 def _jax_loop(jrt, stream):
     """The JAX four-part loop, step by step: [(indexes, symbols)], y_hat."""
     crt = jrt._codec_rt
@@ -61,12 +73,11 @@ def _jax_loop(jrt, stream):
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["64x64", "50x39"])
-def test_port_decodes_jax_stream(jax_side, port_rt, which):
+def test_port_decodes_jax_stream(jax_side, port_decodes, which):
     jrt, streams = jax_side
     stream = streams[which]
     jax_steps, jax_y_hat = _jax_loop(jrt, stream)
-    trace = {}
-    img = port_rt.decode(stream, trace)
+    img, trace = port_decodes[which]
     for step, ((ij, sj), (ip, sp)) in enumerate(zip(jax_steps,
                                                     trace["steps"])):
         flips = int((ij != ip).sum())
@@ -80,7 +91,8 @@ def test_port_decodes_jax_stream(jax_side, port_rt, which):
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=IMAGE_TOL)
 
 
-def test_decode_batch_equals_single_decodes(jax_side, port_rt):
+def test_decode_batch_equals_single_decodes(jax_side, port_rt,
+                                           port_decodes):
     """Both streams pad to 64x64: one bucket. Its four-part loop runs the
     prior nets one image at a time, so y_hat is bit-identical to the single
     decodes'; the batched UNet and VAE may round differently from batch 1
@@ -89,9 +101,7 @@ def test_decode_batch_equals_single_decodes(jax_side, port_rt):
     batch = port_rt.decode_batch(streams)
     bucket = {}
     port_rt.decode_padded([port_rt.parse(s) for s in streams], bucket)
-    for row, (stream, got) in enumerate(zip(streams, batch)):
-        single = {}
-        want = port_rt.decode(stream, single)
+    for row, (got, (want, single)) in enumerate(zip(batch, port_decodes)):
         assert torch.equal(bucket["y_hat"][row:row + 1], single["y_hat"])
         assert got.shape == want.shape
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,

@@ -47,9 +47,15 @@ def fill_params(shapes, rng: np.random.Generator):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-@functools.lru_cache(maxsize=None)
 def tiny_jax_model(seed: int = SEED):
-    """(flax OneDC, params as nested dicts of numpy arrays)."""
+    """(flax OneDC, params as nested dicts of numpy arrays), built once per
+    seed and process (``tiny_jax_model()`` and ``tiny_jax_model(SEED)`` are
+    one entry: tracing the init takes 10-20 s on a CPU)."""
+    return _tiny_jax_model(seed)
+
+
+@functools.lru_cache(maxsize=None)
+def _tiny_jax_model(seed: int):
     model = JaxOneDC(**TINY)
     shapes = jax.eval_shape(
         lambda x: model.init({"params": jax.random.PRNGKey(0)}, x),

@@ -44,9 +44,13 @@ FAMILIES = (
 
 
 def family(name: str) -> str:
-    if "gn_silu_conv3x3_kernel" in name:  # one template: K2, or K3 if false
-        return ("K3 conv3x3" if "false" in name or "(bool)0" in name
-                else "K2 gn_silu_conv3x3")
+    # before FAMILIES, whose "conv" key would take them: the kernels of
+    # csrc/conv3x3.cu, K2 (gn_silu_conv3x3_kernel_wgmma, _f32 in training)
+    # and K3 (conv3x3_dx_kernel_wgmma)
+    if "conv3x3_dx_kernel" in name:
+        return "K3 conv3x3"
+    if "gn_silu_conv3x3_kernel" in name:
+        return "K2 gn_silu_conv3x3"
     low = name.lower()
     for fam, keys in FAMILIES:
         if any(k in low for k in keys):
