@@ -12,8 +12,10 @@
    gradient), and K2's autograd backward against autograd of its plain
    version; CUDA event times of the kernel (through its wrapper), the
    plain version and one PyTorch library call for the same function (for
-   the f32 convs also cuDNN in bf16 on the bf16-rounded operands, the
-   arithmetic K2 f32 and K3 do); the card's bound for the same work.
+   the f32 kernels also that call in bf16 on the bf16-rounded operands,
+   the arithmetic they do: cuDNN for K2 f32 and K3, SDPA and its backward
+   for K1 f32 and K1-bwd); the card's bound for the same work; K1-bwd
+   launched twice on the same inputs must give the same bits.
 4. Decode path: the full-width OneDC (lambda family: codec 512/128, FSQ
    [4]*7, SD1.5 UNet, SD2.1 VAE) on weights drawn from a seeded
    generator, in bf16. Writes two 768x768 streams and one 512x768 stream
@@ -453,14 +455,19 @@ def check_k1_train(gen: torch.Generator):
                             iters=3)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
+            # SDPA in bf16 on the bf16-rounded operands: the arithmetic the
+            # kernel does (bf16 products, f32 sums)
+            qt, kt, vt = (t.to(torch.bfloat16) for t in (qt, kt, vt))
+            lib_bf16 = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
             del qt, kt, vt
             bnd, by = attention_bound(b, n, h, d, 4, lse=True)
             fwd_rows.append(dict(bucket=bucket, shape=list(shape),
                                  count=count, **errs, ms=ms, plain_ms=plain,
-                                 library_ms=lib, bound_ms=bnd, bound_by=by))
+                                 library_ms=lib, library_bf16_ms=lib_bf16,
+                                 bound_ms=bnd, bound_by=by))
             print(f"K1 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
-                  f"{plain:.4f} sdpa {lib:.4f} bound {bnd:.4f} ({by})",
-                  flush=True)
+                  f"{plain:.4f} sdpa {lib:.4f} sdpa-bf16 {lib_bf16:.4f} bound "
+                  f"{bnd:.4f} ({by})", flush=True)
 
             # the kernel takes the forward kernel's out and lse; the plain
             # backward the plain ones, so a wrong lse shows here too
@@ -478,13 +485,24 @@ def check_k1_train(gen: torch.Generator):
             all_errs = [compare(f"K1-bwd {name} {tag}", g, r, m)
                         for name, g, r, m in zip(("dQ", "dK", "dV"), grads,
                                                  refs, mutants)]
-            del grads, refs, skip_key, skip_query, mutants
+            del refs, skip_key, skip_query, mutants
+            # no atomics, one summation order: a second launch on the same
+            # inputs gives the same bits
+            again = k1.flash_attention_bwd_cuda(q, k, v, dout, lse, di, scale)
+            if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+                raise AssertionError(f"K1-bwd {tag}: two launches on the same "
+                                     f"inputs differ")
+            print(f"K1-bwd {tag}: a second launch gives bit-identical dQ, "
+                  f"dK, dV", flush=True)
+            del grads, again
             torch.cuda.empty_cache()
             ms = cuda_ms(lambda: k1.flash_attention_bwd_cuda(
                 q, k, v, dout, lse, di, scale))
             plain = cuda_ms(lambda: k1.attention_bwd_plain(
                 q, k, v, out, dout, lse, scale), iters=2, warmup=1)
             lib = cuda_ms(sdpa_bwd_timer(q, k, v, dout, scale))
+            lib_bf16 = cuda_ms(sdpa_bwd_timer(
+                *(t.to(torch.bfloat16) for t in (q, k, v, dout)), scale))
             bnd, by = attention_bound(b, n, h, d, 4, backward=True)
             bwd_rows.append(dict(
                 bucket=bucket, shape=list(shape), count=count,
@@ -492,11 +510,11 @@ def check_k1_train(gen: torch.Generator):
                 rel_l2_err=max(e["rel_l2_err"] for e in all_errs),
                 rel_max_err=max(e["rel_max_err"] for e in all_errs),
                 mutant_rel_l2=min(e["mutant_rel_l2"] for e in all_errs),
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                bound_by=by))
+                ms=ms, plain_ms=plain, library_ms=lib,
+                library_bf16_ms=lib_bf16, bound_ms=bnd, bound_by=by))
             print(f"K1-bwd {tag} x{count}: kernel {ms:.4f} ms plain "
-                  f"{plain:.4f} sdpa-bwd {lib:.4f} bound {bnd:.4f} ({by})",
-                  flush=True)
+                  f"{plain:.4f} sdpa-bwd {lib:.4f} sdpa-bwd-bf16 "
+                  f"{lib_bf16:.4f} bound {bnd:.4f} ({by})", flush=True)
             del q, k, v, dout, out, lse, di, out_plain, lse_plain
             torch.cuda.empty_cache()
     return fwd_rows, bwd_rows

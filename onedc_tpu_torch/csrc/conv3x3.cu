@@ -94,7 +94,6 @@
 
 #include <algorithm>
 
-#include "mma.cuh"
 #include "sm90.cuh"
 
 namespace {

@@ -12,28 +12,54 @@
 // path computes it in plain jnp, flash_attention.py:273).
 //
 // Two kernels, as on the TPU, so that no sum crosses blocks and no atomics
-// are needed (the result is deterministic):
-//  - dK/dV: one block per (64-key tile, batch*head), 4 warps x 16 keys; it
-//    keeps its K and V tile in shared memory and walks the query tiles;
-//  - dQ: one block per (64-query tile, batch*head), 4 warps x 16 queries;
-//    it keeps its Q and dO tile and walks the key tiles.
-// Each recomputes S, so the pair does 7 products of N*M*D per head against
-// the forward's 2 (2*7*N*M*D*B*H FLOPs on the tensor cores).
+// are needed: every output is summed in one fixed order, and two launches
+// on the same inputs give the same bits.
+//  - dK/dV, flash_bwd_dkv_kernel: a block owns the keys of one (batch,
+//    head), 64 per consumer warpgroup (three up to D = 48, where their
+//    tiles fit, else two), keeps their K and V tiles in shared memory and
+//    walks the query tiles of 64. Per tile, with the keys as
+//    wgmma's M so that each product lands in registers where the next
+//    needs it:
+//        S^T = K Q^T (SS),  P^T = exp2(S^T * scale * log2e - lse * log2e),
+//        dV += P^T dO (RS),  dP^T = V dO^T (SS),  dS^T = P^T * (dP^T - di),
+//        dK += dS^T Q (RS), dS^T packed where P^T was once dV has read it;
+//    lse and di vary along the columns here, so the producer stages them
+//    per query tile in shared memory beside Q and dO.
+//  - dQ, flash_bwd_dq_kernel: a block owns queries, 64 per consumer
+//    warpgroup (as many as above), keeps their Q and dO tiles and walks
+//    the key tiles of 64:
+//        S = Q K^T (SS),  P,  dP = dO V^T (SS),  dS = P * (dP - di),
+//        dQ += dS K (RS).
+// SS: both operands in shared memory, K-major (D contiguous). RS: the A
+// operand (P^T, dS^T or dS) re-packed from the accumulator fragment into
+// registers as bf16, as the forward packs P; the B operand (dO, Q or K
+// rows) in shared memory N-major ("transposed"), N = D rounded up to 16,
+// 40, 48, 80 or 128. The pair does 7 products of N*M*D per head (against the
+// bound's 5: S twice) and takes the exponentials twice. Every product
+// retires within its tile (see the dK/dV loop).
 //
-// Layout: q, dq (B, N, H, D); k, v, dk, dv (B, M, H, D); dout (B, N, H, D);
-// lse and di (B, H, N) f32; all contiguous. Operands are staged into shared
-// memory as bf16 (bf16 inputs by cp.async, f32 inputs through registers with
-// a round to bf16), D padded there to a multiple of 16, and every product
-// runs on mma.sync m16n8k16 bf16 with f32 accumulation; P and dS are
-// re-packed from the accumulator fragments as A operands in registers, as
-// in the forward.
+// Loads: a producer warpgroup fills the resident tiles once and streams
+// the other pair through two rings: TMA lands rows densely, as they are
+// in device memory (f32 or bf16), in a staging ring (two stages up to
+// D = 80), and the warpgroup rounds them to bf16 into the resident tiles
+// or the 128-byte swizzled ring (three stages at D <= 48, two above) that
+// wgmma's descriptors read, D zero-padded there and never in device
+// memory (sm90::convert_staged).
+// f32 is thus rounded to bf16 as it is staged, as the TPU runs f32
+// matmuls at default precision; the products accumulate in f32.
+// setmaxnreg gives the consumers the producer's unused registers.
 //
-// What bounds it on the H100: ~14*N*M*D FLOPs per head against ~40*N*D
-// bytes (f32), far above the ridge: the tensor cores. This first version
-// is single-buffered (each tile's copies wait for the previous tile's math)
-// and runs no wgmma or TMA (later work).
+// Layout: q, dq (B, N, H, D); k, v, dk, dv (B, M, H, D); dout (B, N, H,
+// D); lse and di (B, H, N) f32; all contiguous, 16-byte aligned, D a
+// multiple of 8, at most 128. dq, dk, dv are stored in q's type from the
+// accumulators; the ragged N and M edges are masked.
+//
+// What bounds it on the H100: ~10*N*M*D FLOPs per head on the tensor cores
+// (14 as done here) against ~40*N*D bytes (f32), far above the ridge, and
+// N*M exponentials: the tensor cores at the training shapes, except D = 8
+// (the exponentials).
 
-#include "mma.cuh"
+#include "sm90.cuh"
 
 #include <math.h>
 
@@ -41,300 +67,546 @@ namespace {
 
 using namespace onedc;
 
-constexpr int kTile = 64;
-constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// acc[j] (16 rows x 8 columns, j = 0..7) += rows of `sa` (16 x DP, from
-// row0) times columns of `sb` (64 rows x DP, each row one output column):
-// acc = A B^T over d.
-template <int DP>
-__device__ __forceinline__ void gemm_abt(float acc[8][4],
-                                         const __nv_bfloat16* sa,
-                                         const __nv_bfloat16* sb, int row0,
-                                         int g, int t) {
-  constexpr int LD = DP + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const __nv_bfloat16* pa = sa + (row0 + g) * LD + kk * 16 + 2 * t;
-    const uint32_t a[4] = {ld_u32(pa), ld_u32(pa + 8 * LD), ld_u32(pa + 8),
-                           ld_u32(pa + 8 * LD + 8)};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const __nv_bfloat16* pb = sb + (j * 8 + g) * LD + kk * 16 + 2 * t;
-      mma_bf16(acc[j], a, ld_u32(pb), ld_u32(pb + 8));
+constexpr int kTile = 64;   // streamed queries (dK/dV) or keys (dQ)
+constexpr int kProducerWarps = 4;
+
+// A block: kWG consumer warpgroups of 64 resident keys (dK/dV) or queries
+// (dQ) each, and a producer warpgroup. Registers per thread after
+// setmaxnreg: the producer's and the consumers' add up to what the block
+// starts with, 65,536 / threads rounded down to 8 (setmaxnreg.inc takes
+// only what the block's warps gave up): 128 x 104 + 256 x 200 = 384 x 168,
+// 128 x 56 + 384 x 152 = 512 x 128.
+template <int kWG>
+struct Block {
+  static_assert(kWG == 2 || kWG == 3, "two or three consumer warpgroups");
+  static constexpr int kRows = 64 * kWG;
+  static constexpr int kConsumerWarps = 4 * kWG;
+  static constexpr int kThreads = (kConsumerWarps + kProducerWarps) * 32;
+  static constexpr int kProducerRegs = kWG == 2 ? 104 : 56;
+  static constexpr int kConsumerRegs = kWG == 2 ? 200 : 152;
+};
+
+// columns staged per row for DV computed: D's columns and the zeros that
+// pad them to the 16 a k-step reads
+template <int DV>
+constexpr int kStagedCols = (DV + 15) / 16 * 16;
+
+// Shared memory of both kernels, 1024-aligned: two resident tiles of kRows
+// rows, a ring of kStages pairs of streamed tiles of kTile rows (each
+// [DP / 64 atoms][rows][128 bytes]), the dK/dV kernel's lse * log2(e) and
+// di rows per stage, a staging ring of kStg pairs of streamed tiles as TMA
+// lands them (dense rows of D <= DV columns of f32 or bf16), and the
+// barriers. Three bf16 stages and two staging stages where they fit.
+template <int DP, int DV, int kWG>
+struct Smem {
+  static constexpr int kRows = Block<kWG>::kRows;
+  static constexpr int kStages = DP == 64 ? 3 : 2;
+  static constexpr int kStg = DV <= 48 ? 3 : DV <= 80 ? 2 : 1;
+  static constexpr int kResBytes = DP / 64 * kRows * 128;
+  static constexpr int kTileBytes = DP / 64 * kTile * 128;
+  static constexpr int kStgTileBytes = kTile * DV * 4;  // f32 capacity
+  static constexpr int kRowsOff = 2 * kResBytes + 2 * kStages * kTileBytes;
+  static constexpr int kStgOff = kRowsOff + kStages * 2 * kTile * 4;
+  static constexpr int kBarOff = kStgOff + kStg * 2 * kStgTileBytes;
+  static constexpr size_t kBytes =
+      1024 + kBarOff + (1 + 2 * kStages + kStg) * 8;
+  unsigned char* base;
+  __device__ unsigned char* res(int i) const { return base + i * kResBytes; }
+  __device__ unsigned char* tile(int s, int i) const {
+    return base + 2 * kResBytes + (2 * s + i) * kTileBytes;
+  }
+  __device__ float* rows(int s, int i) const {  // i = 0: lse * log2(e), 1: di
+    return reinterpret_cast<float*>(base + kRowsOff) + (2 * s + i) * kTile;
+  }
+  __device__ unsigned char* staged(int sf, int i) const {
+    return base + kStgOff + (2 * sf + i) * kStgTileBytes;
+  }
+  __device__ uint64_t* res_full() const {
+    return reinterpret_cast<uint64_t*>(base + kBarOff);
+  }
+  __device__ uint64_t* full(int s) const { return res_full() + 1 + s; }
+  __device__ uint64_t* empty(int s) const {
+    return res_full() + 1 + kStages + s;
+  }
+  __device__ uint64_t* stg_full(int sf) const {
+    return res_full() + 1 + 2 * kStages + sf;
+  }
+};
+static_assert(Smem<128, 80, 2>::kBytes <= 232448, "shared memory");
+static_assert(Smem<128, 128, 2>::kBytes <= 232448, "shared memory");
+static_assert(Smem<64, 48, 3>::kBytes <= 232448, "shared memory");
+
+template <int DP, int DV, int kWG>
+__device__ __forceinline__ Smem<DP, DV, kWG> smem_layout() {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle is a function of the shared address: 1024-align
+  return Smem<DP, DV, kWG>{
+      smem_raw + ((1024 - (sm90::smem_addr(smem_raw) & 1023)) & 1023)};
+}
+
+template <int DP, int DV, int kWG>
+__device__ __forceinline__ void init_barriers(const Smem<DP, DV, kWG>& sm) {
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(sm.res_full(), kProducerWarps);
+    for (int s = 0; s < sm.kStages; ++s) {
+      sm90::mbar_init(sm.full(s), kProducerWarps);
+      sm90::mbar_init(sm.empty(s), Block<kWG>::kConsumerWarps);
     }
+    for (int sf = 0; sf < sm.kStg; ++sf) sm90::mbar_init(sm.stg_full(sf), 1);
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// the producer warp's stores are done: order them before the async proxy
+// (wgmma) and arrive once for the warp
+__device__ __forceinline__ void arrive_stored(uint64_t* bar) {
+  sm90::fence_proxy_async();
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) sm90::mbar_arrive(bar);
+}
+
+// The producer warpgroup. TMA lands row blocks of kTile rows of two
+// tensors at a time, densely, in staging stage e % kStg: at steps e <
+// kHalves the resident rows r0 + e * kTile (rmap0, rmap1), then at step
+// kHalves + j the streamed tile j (smap0, smap1). The warpgroup rounds
+// each step into the resident tiles or into ring stage j % kStages once
+// the consumers have freed it, and one thread refills the staging stage
+// with step e + kStg. Per streamed tile, fetch(j) runs first (global
+// loads, in flight while the thread waits) and put(s, value) after the
+// ring stage is free and before the consumers are signalled: the dK/dV
+// kernel's lse and di rows.
+template <int DP, int DV, int kWG, typename T, typename F, typename G>
+__device__ __forceinline__ void produce(const Smem<DP, DV, kWG>& sm,
+                                        const CUtensorMap* rmap0,
+                                        const CUtensorMap* rmap1, int r0,
+                                        const CUtensorMap* smap0,
+                                        const CUtensorMap* smap1, int h,
+                                        int b, int ntiles, int D, F&& fetch,
+                                        G&& put) {
+  constexpr int kP = kProducerWarps * 32;
+  constexpr int kHalves = Block<kWG>::kRows / kTile;
+  const int pt = threadIdx.x - Block<kWG>::kConsumerWarps * 32;
+  const int steps = kHalves + ntiles;
+  auto issue = [&](int e) {
+    const int sf = e % sm.kStg;
+    const bool res = e < kHalves;
+    const int row = res ? r0 + e * kTile : (e - kHalves) * kTile;
+    sm90::fence_proxy_async();  // the warpgroup's reads of the stage first
+    sm90::mbar_arrive_expect_tx(sm.stg_full(sf),
+                                2 * kTile * D * sizeof(T));
+    sm90::tma_load_4d(sm.staged(sf, 0), res ? rmap0 : smap0, sm.stg_full(sf),
+                      0, h, row, b);
+    sm90::tma_load_4d(sm.staged(sf, 1), res ? rmap1 : smap1, sm.stg_full(sf),
+                      0, h, row, b);
+  };
+  if (pt == 0) {
+    for (int e = 0; e < sm.kStg && e < steps; ++e) issue(e);
+  }
+  for (int e = 0; e < steps; ++e) {
+    const int sf = e % sm.kStg;
+    const int j = e - kHalves;
+    const float fetched = j >= 0 ? fetch(j) : 0.f;
+    sm90::mbar_wait(sm.stg_full(sf), (e / sm.kStg) & 1);
+    const T* const src[2] = {reinterpret_cast<const T*>(sm.staged(sf, 0)),
+                             reinterpret_cast<const T*>(sm.staged(sf, 1))};
+    if (j < 0) {
+      unsigned char* const dst[2] = {sm.res(0) + e * kTile * 128,
+                                     sm.res(1) + e * kTile * 128};
+      sm90::convert_staged<kStagedCols<DV>, 2>(dst, src, kTile, sm.kRows, D, pt,
+                                                   kP);
+      if (e == kHalves - 1) arrive_stored(sm.res_full());
+    } else {
+      const int s = j % sm.kStages;
+      sm90::mbar_wait(sm.empty(s), ((j / sm.kStages) & 1) ^ 1);
+      unsigned char* const dst[2] = {sm.tile(s, 0), sm.tile(s, 1)};
+      sm90::convert_staged<kStagedCols<DV>, 2>(dst, src, kTile, kTile, D, pt,
+                                                   kP);
+      put(s, fetched);
+      arrive_stored(sm.full(s));
+    }
+    // every thread is done reading staging stage sf: refill it
+    sm90::named_barrier_sync(1, kP);
+    if (pt == 0 && e + sm.kStg < steps) issue(e + sm.kStg);
   }
 }
 
-// out[i] (16 rows x DP) += P (16 x 64, accumulator fragments p[8][4]) times
-// `sb` (64 rows x DP, k-major).
-template <int DP>
-__device__ __forceinline__ void gemm_pb(float out[DP / 8][4],
-                                        float p[8][4],
-                                        const __nv_bfloat16* sb, int lane) {
-  constexpr int LD = DP + 8;
+// acc (64 x N: 64 resident rows x kTile streamed) = A (the warpgroup's 64
+// rows of a resident tile) times B^T (a streamed tile), over the D columns:
+// both K-major, ksteps (D / 16 rounded up) of 16 columns, 32 bytes into atom
+// kk / 4. Unrolled, and the first k-step only writes acc: a loop would
+// carry acc through moves, and a value given to acc beforehand would be
+// one more write, while products are in flight (ptxas serialises the
+// products it sees so written).
+template <int DV, int kRows>
+__device__ __forceinline__ void product_ss(float* acc, uint32_t a_addr,
+                                           uint32_t b_addr, int ksteps) {
+  using namespace sm90;
+  static_assert(kTile == 64, "wgmma_ss_n64_first");
+  wgmma_ss_n64_first(acc, desc_sw128(a_addr, 16, 1024),
+                     desc_sw128(b_addr, 16, 1024));
+#pragma unroll
+  for (int kk = 1; kk < kStagedCols<DV> / 16; ++kk) {
+    if (kk >= ksteps) break;
+    const uint32_t off = (kk & 3) * 32;
+    wgmma_ss<kTile>(acc,
+                    desc_sw128(a_addr + (kk >> 2) * kRows * 128 + off, 16,
+                               1024),
+                    desc_sw128(b_addr + (kk >> 2) * kTile * 128 + off, 16,
+                               1024),
+                    1);
+  }
+}
+
+// acc (64 x DV) += A (64 x kTile, bf16 fragments in registers) times the
+// streamed tile at b_addr (kTile rows x DV columns, N-major: 64-column
+// atoms kTile * 128 bytes apart, 8-row groups 1024 apart)
+template <int DV>
+__device__ __forceinline__ void product_rs(float* acc,
+                                           const uint32_t (&a)[kTile / 16][4],
+                                           uint32_t b_addr) {
 #pragma unroll
   for (int kk = 0; kk < kTile / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    sm90::wgmma_rs<DV>(acc, a[kk],
+                       sm90::desc_sw128(b_addr + kk * 2048, kTile * 128, 1024),
+                       1);
+  }
+}
+
+// the accumulator fragment of 64 x kTile scores as kTile / 16 A fragments:
+// key (or query) blocks 2kk, 2kk+1 of the accumulator are the A fragment
+// of columns 16kk .. 16kk+15
+__device__ __forceinline__ void pack_a(uint32_t (&a)[kTile / 16][4],
+                                       const float* x) {
 #pragma unroll
-    for (int dn2 = 0; dn2 < DP / 16; ++dn2) {
-      uint32_t bv[4];
-      ldmatrix_x4_trans(
-          bv, sb + (kk * 16 + (lane & 15)) * LD + dn2 * 16 + (lane >> 4) * 8);
-      mma_bf16(out[2 * dn2], a, bv[0], bv[1]);
-      mma_bf16(out[2 * dn2 + 1], a, bv[2], bv[3]);
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
     }
   }
 }
 
-// Stores 16 rows (row0 + g, row0 + g + 8 of the tile at r0) x D of
-// acc * mul to dst (rows of stride H * D).
-template <int DP, typename T>
-__device__ __forceinline__ void store_rows(T* dst, float acc[DP / 8][4],
-                                           float mul, int r0, int rows,
-                                           size_t stride, int D, int g,
-                                           int t) {
-  const int r_lo = r0 + g;
+template <int N>
+__device__ __forceinline__ void fence_regs(float* x) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) sm90::reg_fence(x[i]);
+}
+
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[kTile / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kTile / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) sm90::reg_fence(a[kk][r]);
+}
+
+// Stores a warpgroup's 64 rows x D of acc * mul (the DV-column accumulator
+// fragment: element 4i + e is row g + 8 (e / 2), column 8i + 2t + e % 2 of
+// the warp's 16) to dst, rows r0 .. of `rows` valid, row stride `stride`.
+template <int DV, typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float* acc, float mul,
+                                           int r0, int rows, size_t stride,
+                                           int D) {
+  const int lane = threadIdx.x % 32;
+  const int r_lo = r0 + (threadIdx.x / 32 % 4) * 16 + (lane >> 2);
   const int r_hi = r_lo + 8;
 #pragma unroll
-  for (int i = 0; i < DP / 8; ++i) {
-    const int d = i * 8 + 2 * t;
+  for (int i = 0; i < DV / 8; ++i) {
+    const int d = i * 8 + 2 * (lane & 3);
     if (d >= D) continue;
     if (r_lo < rows) {
-      store2<T>(dst + r_lo * stride + d, acc[i][0] * mul, acc[i][1] * mul);
+      store2<T>(dst + r_lo * stride + d, acc[4 * i] * mul,
+                acc[4 * i + 1] * mul);
     }
     if (r_hi < rows) {
-      store2<T>(dst + r_hi * stride + d, acc[i][2] * mul, acc[i][3] * mul);
+      store2<T>(dst + r_hi * stride + d, acc[4 * i + 2] * mul,
+                acc[4 * i + 3] * mul);
     }
   }
 }
 
-template <int DP, typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+// DP: D rounded up to 64 (columns staged per row, 64 per atom); DV: the
+// columns computed (D rounded up to 16, 40, 48, 80 or 128)
+template <int DP, int DV, int kWG, typename T>
+__global__ void __launch_bounds__(Block<kWG>::kThreads, 1)
+    flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap omap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
                          const float* __restrict__ lse,
                          const float* __restrict__ di, T* __restrict__ dk,
                          T* __restrict__ dv, int N, int M, int H, int D,
                          float scale, float scale_log2) {
-  constexpr int LD = DP + 8;
-  constexpr int DT = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kTile * LD;
-  __nv_bfloat16* sQ = sV + kTile * LD;
-  __nv_bfloat16* sO = sQ + kTile * LD;  // dO
-  float* sL = reinterpret_cast<float*>(sO + kTile * LD);  // lse * log2(e)
-  float* sD = sL + kTile;                                 // di
-
-  const int m0 = blockIdx.x * kTile;
+  using Blk = Block<kWG>;
+  const Smem<DP, DV, kWG> sm = smem_layout<DP, DV, kWG>();
+  init_barriers(sm);
+  const int m0 = blockIdx.x * Blk::kRows;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const size_t stride = static_cast<size_t>(H) * D;
   const size_t head = static_cast<size_t>(h) * D;
-  const T* qb = q + static_cast<size_t>(b) * N * stride + head;
-  const T* ob = dout + static_cast<size_t>(b) * N * stride + head;
   const size_t kv0 = (static_cast<size_t>(b) * M + m0) * stride + head;
-  const float* lb = lse + (static_cast<size_t>(b) * H + h) * N;
-  const float* db = di + (static_cast<size_t>(b) * H + h) * N;
-
+  const int ntiles = (N + kTile - 1) / kTile;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = warp * 16;
 
-  load_tile<DP>(sK, k + kv0, M - m0, stride, D);
-  load_tile<DP>(sV, v + kv0, M - m0, stride, D);
-
-  float acc_dk[DT][4], acc_dv[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) {
-    acc_dk[i][0] = acc_dk[i][1] = acc_dk[i][2] = acc_dk[i][3] = 0.f;
-    acc_dv[i][0] = acc_dv[i][1] = acc_dv[i][2] = acc_dv[i][3] = 0.f;
+  if (warp >= Blk::kConsumerWarps) {  // the producer warpgroup
+    sm90::reg_dealloc<Blk::kProducerRegs>();
+    const int pt = threadIdx.x - Blk::kConsumerWarps * 32;
+    const size_t row0 = (static_cast<size_t>(b) * H + h) * N;
+    // threads 0..63 stage lse * log2(e), 64..127 di; a query past N gets
+    // lse = +inf, so that its probabilities are exp2(-inf) = 0
+    produce<DP, DV, kWG, T>(
+        sm, &kmap, &vmap, m0, &qmap, &omap, h, b, ntiles, D,
+        [&](int i) {
+          const int qi = i * kTile + pt % kTile;
+          return pt < kTile ? (qi < N ? lse[row0 + qi] * kLog2e : INFINITY)
+                            : (qi < N ? di[row0 + qi] : 0.f);
+        },
+        [&](int s, float x) { sm.rows(s, pt / kTile)[pt % kTile] = x; });
+    return;
   }
 
-  for (int n0 = 0; n0 < N; n0 += kTile) {
-    __syncthreads();  // the previous query tile is consumed
-    load_tile<DP>(sQ, qb + static_cast<size_t>(n0) * stride, N - n0, stride, D);
-    load_tile<DP>(sO, ob + static_cast<size_t>(n0) * stride, N - n0, stride, D);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const bool valid = n0 + i < N;
-      sL[i] = valid ? lb[n0 + i] * kLog2e : 0.f;
-      sD[i] = valid ? db[n0 + i] : 0.f;
-    }
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
+  sm90::reg_alloc<Blk::kConsumerRegs>();
+  // consumers: warpgroup wgi owns keys m0 + 64*wgi .. +63; in each
+  // fragment the thread holds rows g and g + 8 of its warp's 16 and the
+  // columns 8jj + 2t + e % 2
+  const int wgi = warp / 4;
+  const int t = threadIdx.x % 4;
+  const int ksteps = (D + 15) / 16;
+  const uint32_t kaddr = sm90::smem_addr(sm.res(0)) + wgi * 64 * 128;
+  const uint32_t vaddr = sm90::smem_addr(sm.res(1)) + wgi * 64 * 128;
 
-    // P^T (this warp's 16 keys x 64 queries), recomputed from S^T = K Q^T
-    float p[8][4];
-    gemm_abt<DP>(p, sK, sQ, row0, g, t);
+  float acc_dk[DV / 2], acc_dv[DV / 2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int i = 0; i < DV / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  uint32_t a_p[kTile / 16][4];
+  sm90::mbar_wait(sm.res_full(), 0);
+
+  // Every register a product writes or reads is touched again only after
+  // the wait that retires it, and every product retires within its tile:
+  // a write to one while products are in flight (a loop's back-edge moving
+  // an accumulator, too) makes ptxas serialise every product. One A
+  // fragment serves P^T and then dS^T, so that three warpgroups' registers
+  // fit.
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % sm.kStages;
+    sm90::mbar_wait(sm.full(s), (i / sm.kStages) & 1);
+    const uint32_t qaddr = sm90::smem_addr(sm.tile(s, 0));
+    const uint32_t oaddr = sm90::smem_addr(sm.tile(s, 1));
+    const float* l2 = sm.rows(s, 0);
+    const float* dd = sm.rows(s, 1);
+
+    float p[kTile / 2], dp[kTile / 2];
+    sm90::wgmma_fence();
+    product_ss<DV, Blk::kRows>(p, kaddr, qaddr, ksteps);   // S^T = K Q^T
+    product_ss<DV, Blk::kRows>(dp, vaddr, oaddr, ksteps);  // dP^T = V dO^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_regs<kTile / 2>(p);
+    fence_regs<kTile / 2>(dp);
+#pragma unroll
+    for (int jj = 0; jj < kTile / 8; ++jj) {
+      const float2 l = *reinterpret_cast<const float2*>(l2 + 8 * jj + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * t + (e & 1);
-        p[j][e] = n0 + qi < N ? exp2f(p[j][e] * scale_log2 - sL[qi]) : 0.f;
+        p[4 * jj + e] =
+            exp2f(fmaf(p[4 * jj + e], scale_log2, (e & 1) ? -l.y : -l.x));
       }
     }
-    gemm_pb<DP>(acc_dv, p, sO, lane);  // dV += P^T dO
-
-    // dS^T = P^T * (dP^T - di), dP^T = V dO^T
-    float ds[8][4];
-    gemm_abt<DP>(ds, sV, sO, row0, g, t);
+    pack_a(a_p, p);
+    sm90::wgmma_fence();
+    product_rs<DV>(acc_dv, a_p, oaddr);  // dV += P^T dO
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_regs<DV / 2>(acc_dv);
+    fence_regs(a_p);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int jj = 0; jj < kTile / 8; ++jj) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dd + 8 * jj + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        ds[j][e] = p[j][e] * (ds[j][e] - sD[j * 8 + 2 * t + (e & 1)]);
+        dp[4 * jj + e] =
+            p[4 * jj + e] * (dp[4 * jj + e] - ((e & 1) ? d2.y : d2.x));
       }
     }
-    gemm_pb<DP>(acc_dk, ds, sQ, lane);  // dK += dS^T Q
+    pack_a(a_p, dp);
+    sm90::wgmma_fence();
+    product_rs<DV>(acc_dk, a_p, qaddr);  // dK += dS^T Q
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_regs<DV / 2>(acc_dk);
+    fence_regs(a_p);
+    if (threadIdx.x % 32 == 0) sm90::mbar_arrive(sm.empty(s));
   }
 
-  store_rows<DP>(dk + kv0, acc_dk, scale, row0, M - m0, stride, D, g, t);
-  store_rows<DP>(dv + kv0, acc_dv, 1.f, row0, M - m0, stride, D, g, t);
+  store_rows<DV>(dk + kv0, acc_dk, scale, wgi * 64, M - m0, stride, D);
+  store_rows<DV>(dv + kv0, acc_dv, 1.f, wgi * 64, M - m0, stride, D);
 }
 
-template <int DP, typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
+template <int DP, int DV, int kWG, typename T>
+__global__ void __launch_bounds__(Block<kWG>::kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap omap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
                         const float* __restrict__ lse,
                         const float* __restrict__ di, T* __restrict__ dq,
                         int N, int M, int H, int D, float scale,
                         float scale_log2) {
-  constexpr int LD = DP + 8;
-  constexpr int DT = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sO = sQ + kTile * LD;  // dO
-  __nv_bfloat16* sK = sO + kTile * LD;
-  __nv_bfloat16* sV = sK + kTile * LD;
-
-  const int n0 = blockIdx.x * kTile;
+  using Blk = Block<kWG>;
+  const Smem<DP, DV, kWG> sm = smem_layout<DP, DV, kWG>();
+  init_barriers(sm);
+  const int n0 = blockIdx.x * Blk::kRows;
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
   const size_t stride = static_cast<size_t>(H) * D;
   const size_t head = static_cast<size_t>(h) * D;
   const size_t q0 = (static_cast<size_t>(b) * N + n0) * stride + head;
-  const T* kb = k + static_cast<size_t>(b) * M * stride + head;
-  const T* vb = v + static_cast<size_t>(b) * M * stride + head;
-
+  const int ntiles = (M + kTile - 1) / kTile;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = warp * 16;
 
-  load_tile<DP>(sQ, q + q0, N - n0, stride, D);
-  load_tile<DP>(sO, dout + q0, N - n0, stride, D);
-  // this thread's rows: row0 + g (e = 0, 1) and row0 + g + 8 (e = 2, 3)
+  if (warp >= Blk::kConsumerWarps) {  // the producer warpgroup
+    sm90::reg_dealloc<Blk::kProducerRegs>();
+    produce<DP, DV, kWG, T>(sm, &qmap, &omap, n0, &kmap, &vmap, h, b, ntiles,
+                            D, [](int) { return 0.f; },
+                            [](int, float) {});
+    return;
+  }
+
+  sm90::reg_alloc<Blk::kConsumerRegs>();
+  // consumers: warpgroup wgi owns queries n0 + 64*wgi .. +63; the thread
+  // holds rows g and g + 8 of its warp's 16 (e / 2 = 0, 1) and the key
+  // columns 8jj + 2t + e % 2
+  const int wgi = warp / 4;
+  const int lane = threadIdx.x % 32;
+  const int t = lane & 3;
+  const int ksteps = (D + 15) / 16;
+  const uint32_t qaddr = sm90::smem_addr(sm.res(0)) + wgi * 64 * 128;
+  const uint32_t oaddr = sm90::smem_addr(sm.res(1)) + wgi * 64 * 128;
   float l2[2], dd[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = n0 + row0 + g + 8 * r;
+    const int row = n0 + wgi * 64 + (warp % 4) * 16 + (lane >> 2) + 8 * r;
     const size_t at = (static_cast<size_t>(b) * H + h) * N + row;
     l2[r] = row < N ? lse[at] * kLog2e : 0.f;
     dd[r] = row < N ? di[at] : 0.f;
   }
 
-  float acc[DT][4];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+  uint32_t a[kTile / 16][4];
+  sm90::mbar_wait(sm.res_full(), 0);
 
-  for (int m0 = 0; m0 < M; m0 += kTile) {
-    __syncthreads();  // the previous key tile is consumed
-    load_tile<DP>(sK, kb + static_cast<size_t>(m0) * stride, M - m0, stride, D);
-    load_tile<DP>(sV, vb + static_cast<size_t>(m0) * stride, M - m0, stride, D);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
+  // Every product retires within its tile, as in the dK/dV kernel.
+  for (int j = 0; j < ntiles; ++j) {
+    const int s = j % sm.kStages;
+    sm90::mbar_wait(sm.full(s), (j / sm.kStages) & 1);
+    const uint32_t kaddr = sm90::smem_addr(sm.tile(s, 0));
+    const uint32_t vaddr = sm90::smem_addr(sm.tile(s, 1));
 
-    float p[8][4];
-    gemm_abt<DP>(p, sQ, sK, row0, g, t);  // S = Q K^T
+    float p[kTile / 2], dp[kTile / 2];
+    sm90::wgmma_fence();
+    product_ss<DV, Blk::kRows>(p, qaddr, kaddr, ksteps);   // S = Q K^T
+    product_ss<DV, Blk::kRows>(dp, oaddr, vaddr, ksteps);  // dP = dO V^T
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_regs<kTile / 2>(p);
+    fence_regs<kTile / 2>(dp);
+    const int m0 = j * kTile;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int i = 0; i < kTile / 2; ++i) {
+      p[i] = exp2f(fmaf(p[i], scale_log2, -l2[(i >> 1) & 1]));
+    }
+    if (m0 + kTile > M) {  // keys past M (zero rows of K) weigh nothing
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = m0 + j * 8 + 2 * t + (e & 1);
-        p[j][e] = key < M ? exp2f(p[j][e] * scale_log2 - l2[e >> 1]) : 0.f;
+      for (int i = 0; i < kTile / 2; ++i) {
+        if (m0 + (i >> 2) * 8 + 2 * t + (i & 1) >= M) p[i] = 0.f;
       }
     }
-    float ds[8][4];
-    gemm_abt<DP>(ds, sO, sV, row0, g, t);  // dP = dO V^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[j][e] = p[j][e] * (ds[j][e] - dd[e >> 1]);
+    for (int i = 0; i < kTile / 2; ++i) {
+      dp[i] = p[i] * (dp[i] - dd[(i >> 1) & 1]);
     }
-    gemm_pb<DP>(acc, ds, sK, lane);  // dQ += dS K
+    pack_a(a, dp);
+    sm90::wgmma_fence();
+    product_rs<DV>(acc, a, kaddr);  // dQ += dS K
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    fence_regs<DV / 2>(acc);
+    fence_regs(a);
+    if (lane == 0) sm90::mbar_arrive(sm.empty(s));
   }
 
-  store_rows<DP>(dq + q0, acc, scale, row0, N - n0, stride, D, g, t);
+  store_rows<DV>(dq + q0, acc, scale, wgi * 64, N - n0, stride, D);
 }
 
-template <int DP, typename T>
+// a block: three consumer warpgroups where their resident tiles and rings
+// fit beside the staging ring (D <= 48), else two
+template <int DP>
+constexpr int kWGs = DP == 64 ? 3 : 2;
+
+template <int DP, int DV, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* di,
                    void* dq, void* dk, void* dv, int B, int N, int M, int H,
                    int D, float scale, cudaStream_t stream) {
-  const size_t tiles = static_cast<size_t>(4) * kTile * (DP + 8) * sizeof(__nv_bfloat16);
-  const size_t smem_dkv = tiles + 2 * kTile * sizeof(float);
+  using Blk = Block<kWGs<DP>>;
+  constexpr size_t smem = Smem<DP, DV, kWGs<DP>>::kBytes;
   // a function attribute belongs to the current device: set on every launch
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<DP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_dkv));
+      flash_bwd_dkv_kernel<DP, DV, kWGs<DP>, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP, T>,
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP, DV, kWGs<DP>, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(tiles));
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const float scale_log2 = scale * kLog2e;
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  flash_bwd_dkv_kernel<DP, T>
-      <<<dim3((M + kTile - 1) / kTile, B * H), kThreads, smem_dkv, stream>>>(
-          tq, tk, tv, tdo, lse, di, static_cast<T*>(dk), static_cast<T*>(dv),
-          N, M, H, D, scale, scale_log2);
+  // dense boxes of kTile rows x D columns
+  CUtensorMap qmap, omap, kmap, vmap;
+  err = sm90::head_map<T>(&qmap, q, B, N, H, D, D, kTile, true);
+  if (err == cudaSuccess) {
+    err = sm90::head_map<T>(&omap, dout, B, N, H, D, D, kTile, true);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::head_map<T>(&kmap, k, B, M, H, D, D, kTile, true);
+  }
+  if (err == cudaSuccess) {
+    err = sm90::head_map<T>(&vmap, v, B, M, H, D, D, kTile, true);
+  }
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<DP, DV, kWGs<DP>, T>
+      <<<dim3((M + Blk::kRows - 1) / Blk::kRows, B * H), Blk::kThreads, smem,
+         stream>>>(qmap, omap, kmap, vmap, lse, di, static_cast<T*>(dk),
+                   static_cast<T*>(dv), N, M, H, D, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<DP, T>
-      <<<dim3((N + kTile - 1) / kTile, B * H), kThreads, tiles, stream>>>(
-          tq, tk, tv, tdo, lse, di, static_cast<T*>(dq), N, M, H, D, scale,
-          scale_log2);
+  flash_bwd_dq_kernel<DP, DV, kWGs<DP>, T>
+      <<<dim3((N + Blk::kRows - 1) / Blk::kRows, B * H), Blk::kThreads, smem,
+         stream>>>(qmap, omap, kmap, vmap, lse, di, static_cast<T*>(dq), N,
+                   M, H, D, scale, scale_log2);
   return cudaGetLastError();
 }
 
+// D a multiple of 8, at most 128 (the wrapper checks): 8, 40 and 80 are the
+// training path's head dims
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const float* lse, const float* di, void* dq, void* dk, void* dv,
              int B, int N, int M, int H, int D, float scale, cudaStream_t s) {
-  switch ((D + 15) / 16 * 16) {
-#define ONEDC_CASE(DP)                                                      \
-  case DP:                                                                  \
-    return launch<DP, T>(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, D, \
-                         scale, s);
-    ONEDC_CASE(16)
-    ONEDC_CASE(32)
-    ONEDC_CASE(48)
-    ONEDC_CASE(64)
-    ONEDC_CASE(80)
-    ONEDC_CASE(96)
-    ONEDC_CASE(112)
-    ONEDC_CASE(128)
-#undef ONEDC_CASE
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 8 || D <= 0 || D > 128) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto* fn = D <= 16   ? &launch<64, 16, T>
+             : D <= 40 ? &launch<64, 40, T>
+             : D <= 48 ? &launch<64, 48, T>
+             : D <= 80 ? &launch<128, 80, T>
+                       : &launch<128, 128, T>;
+  return static_cast<int>(
+      fn(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, D, scale, s));
 }
 
 }  // namespace

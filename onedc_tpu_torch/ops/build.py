@@ -2,7 +2,7 @@
 
 - CUDA kernels: one ``nvcc`` per ``csrc/*.cu`` into a shared library with a
   plain C interface for ``sm_90a`` (Hopper), loaded with ``ctypes``. The
-  bf16 kernels load their tiles by TMA from tensor maps that the library
+  kernels load their tiles by TMA from tensor maps that the library
   encodes on the host with libcuda's ``cuTensorMapEncodeTiled``, reached
   at run time through the runtime's ``cudaGetDriverEntryPoint``
   (``cudaGetDriverEntryPointByVersion`` from CUDA 12.5; ``csrc/sm90.cuh``),

@@ -8,12 +8,14 @@ flash_attention``: the forward ``_flash_attention_impl`` :589 and, under
 :1287). Kernel sources: ``onedc_tpu_torch/csrc/flash_attention.cu`` and
 ``csrc/flash_attention_bwd.cu``. On the H100 the tensor cores and, at small
 head dims, the exponential unit bound them (4*N*M*H*D FLOPs and N*M*H
-exponentials forward, ~14*N*M*H*D FLOPs backward, on O(N*H*D) bytes at the
+exponentials forward, ~10*N*M*H*D FLOPs backward, on O(N*H*D) bytes at the
 UNet's shapes). Both keep the probabilities in registers, so the N x M
 scores never reach device memory, and pad D inside shared memory, not in
-HBM. The bf16 forward (the decode path) runs on ``wgmma`` with TMA loads
-(D a multiple of 8, at most 160, as the f32 one); the f32 forward (training, with the row
-log-sum-exp) and the backward on ``mma.sync`` bf16 with f32 accumulation.
+HBM. All of them run on ``wgmma`` (bf16 operands, f32 accumulation) with
+warp-specialised producers and mbarrier rings: the bf16 forward (the
+decode path) loads by TMA; the f32 forward (training, with the row
+log-sum-exp) and the backward (f32 on the training path, or bf16) load
+rows with ordinary 16-byte loads and round f32 to bf16 as they stage it.
 
 ``flash_attention(q, k, v, scale)`` takes (B, N, H, D), (B, M, H, D),
 (B, M, H, D) tensors of one dtype, bf16 or f32 (f32 operands are rounded to
@@ -136,18 +138,29 @@ def flash_attention_cuda(q, k, v, scale: float, with_lse: bool = False):
     return (out, lse) if with_lse else out
 
 
-def flash_attention_bwd_cuda(q, k, v, dout, lse, di, scale: float):
-    """Launch K1-bwd (the dK/dV kernel, then the dQ kernel) on q's current
-    stream: (dq, dk, dv). ``lse`` and ``di`` are (B, H, N) f32."""
-    global bwd_launches
+def _check_bwd(q, k, v, dout, lse, di):
+    """K1-bwd's rules: the forward's, with D at most 128; dout of q's
+    shape and dtype, contiguous and 16-byte aligned (its rows are read
+    with 16-byte loads); lse and di (B, H, N) f32, contiguous; all on one
+    device."""
     _check(q, k, v, MAX_HEAD_DIM_BWD)
     if dout.shape != q.shape or dout.dtype != q.dtype \
-            or not dout.is_contiguous():
-        raise ValueError("dout must be contiguous, of q's shape and dtype")
+            or not dout.is_contiguous() or dout.data_ptr() % 16:
+        raise ValueError("dout must be contiguous, 16-byte aligned, of q's "
+                         "shape and dtype")
     for name, t in (("lse", lse), ("di", di)):
         if t.shape != (q.shape[0], q.shape[2], q.shape[1]) \
                 or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be (B, H, N) f32, contiguous")
+    if not (dout.device == lse.device == di.device == q.device):
+        raise ValueError("dout, lse, di and q on different devices")
+
+
+def flash_attention_bwd_cuda(q, k, v, dout, lse, di, scale: float):
+    """Launch K1-bwd (the dK/dV kernel, then the dQ kernel) on q's current
+    stream: (dq, dk, dv). ``lse`` and ``di`` are (B, H, N) f32."""
+    global bwd_launches
+    _check_bwd(q, k, v, dout, lse, di)
     lib = load_library("flash_attention_bwd", _BWD_SIGNATURES)
     b, n, h, d = q.shape
     m = k.shape[1]

@@ -1,10 +1,11 @@
-"""The modules that hold the port's two kernels, against the JAX package on
+"""The modules that hold the port's kernels, against the JAX package on
 the CPU (where every wrapper takes its plain version): attention dispatch
 (K1) and the fused GroupNorm-affine + SiLU + 3x3 conv (K2), plus the
-wrapper checks that run before a launch and the bound ``chip_smoke.py``
-holds K1 against. The kernels themselves run only on the card:
-``test_kernels_on_card`` holds each against its plain version there and
-skips here; no test here launches a kernel."""
+wrapper checks that run before a launch (K1, K1-bwd, K2, K3) and the
+bounds ``chip_smoke.py`` holds the kernels against. The kernels
+themselves run only on the card: ``test_kernels_on_card`` holds each
+against its plain version there and skips here; no test here launches a
+kernel."""
 
 import jax
 import jax.numpy as jnp
@@ -230,6 +231,106 @@ def test_k1_bound_counts_the_exponentials(shape, by, ms):
     assert bwd >= cs.bound_ms(0.0, 0.0, float(b) * h * n * n)[0]
 
 
+@pytest.mark.parametrize("bad", ["dtype", "head_dim", "dout_shape",
+                                 "dout_dtype", "dout_strided",
+                                 "dout_misaligned", "q_strided",
+                                 "q_misaligned", "lse_shape", "lse_dtype",
+                                 "di_shape", "di_dtype", "lse_strided",
+                                 "head_dim_odd"])
+def test_k1_bwd_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """K1-bwd takes the forward's operands (one dtype, bf16 or f32, head
+    dims in multiples of 8) with D at most 128; dout of q's shape and dtype,
+    contiguous and 16-byte aligned (its producer warps read every row with
+    16-byte loads); lse and di (B, H, N) f32, contiguous. Each case raises
+    before any library is loaded."""
+    def t(*s, dtype=torch.float32):
+        return torch.zeros(s, dtype=dtype)
+    q, k, v = t(2, 64, 2, 40), t(2, 32, 2, 40), t(2, 32, 2, 40)
+    dout, lse, di = t(2, 64, 2, 40), t(2, 2, 64), t(2, 2, 64)
+    if bad == "dtype":
+        q, k, v, dout = (x.half() for x in (q, k, v, dout))
+    elif bad == "head_dim":
+        q, k, v, dout = t(2, 64, 2, 136), t(2, 32, 2, 136), \
+            t(2, 32, 2, 136), t(2, 64, 2, 136)
+    elif bad == "dout_shape":
+        dout = t(2, 32, 2, 40)
+    elif bad == "dout_dtype":
+        dout = dout.to(torch.bfloat16)
+    elif bad == "dout_strided":
+        dout = t(2, 64, 2, 80)[..., ::2]
+    elif bad == "dout_misaligned":
+        dout = _misaligned(dout)
+    elif bad == "q_strided":
+        q = t(2, 64, 4, 40)[:, :, ::2]
+    elif bad == "q_misaligned":
+        q = _misaligned(q)
+    elif bad == "lse_shape":
+        lse = t(2, 64, 2)
+    elif bad == "lse_dtype":
+        lse = lse.double()
+    elif bad == "di_shape":
+        di = t(2, 2, 32)
+    elif bad == "di_dtype":
+        di = di.to(torch.bfloat16)
+    elif bad == "lse_strided":
+        lse = t(2, 64, 2).transpose(1, 2)
+    elif bad == "head_dim_odd":
+        q, k, v, dout = t(2, 64, 2, 36), t(2, 32, 2, 36), \
+            t(2, 32, 2, 36), t(2, 64, 2, 36)
+    with pytest.raises((TypeError, ValueError)):
+        k1._check_bwd(q, k, v, dout, lse, di)
+    # the good cases pass: f32 and bf16, D = 8 and 128
+    for d, dtype in ((8, torch.float32), (128, torch.bfloat16)):
+        k1._check_bwd(t(2, 64, 2, d, dtype=dtype), t(2, 32, 2, d, dtype=dtype),
+                      t(2, 32, 2, d, dtype=dtype), t(2, 64, 2, d, dtype=dtype),
+                      t(2, 2, 64), t(2, 2, 64))
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "misaligned", "mixed"])
+def test_k1_f32_forward_takes_the_bf16_rules(bad):
+    """The f32 forward (the training path, now on the bf16 kernel's wgmma
+    body) takes what the bf16 one takes: D in multiples of 8 up to 160,
+    contiguous, 16-byte aligned (its producer warps load 16 bytes at a
+    time), q, k, v of one dtype."""
+    def t(*s):
+        return torch.zeros(s, dtype=torch.float32)
+    q, k, v = t(1, 64, 2, 8), t(1, 32, 2, 8), t(1, 32, 2, 8)
+    if bad == "head_dim":
+        q, k, v = t(1, 64, 2, 168), t(1, 32, 2, 168), t(1, 32, 2, 168)
+    elif bad == "misaligned":
+        k = _misaligned(k)
+    elif bad == "mixed":
+        v = v.to(torch.bfloat16)
+    with pytest.raises((TypeError, ValueError)):
+        k1._check(q, k, v)
+    k1._check(t(1, 64, 2, 8), t(1, 32, 2, 8), t(1, 32, 2, 8))
+    k1._check(t(1, 64, 2, 160), t(1, 32, 2, 160), t(1, 32, 2, 160))
+
+
+@pytest.mark.parametrize("shape,lse_by,lse_ms,bwd_by,bwd_ms", [
+    # forward: exponentials 2*8*4096*4096 = 268,435,456 over 132*16*1.83e9
+    # per s (FLOPs 4*2*8*4096^2*40 = 4.29e10: 0.0434 ms; bytes of q, k, v,
+    # o and the lse, 42,205,184: 0.0126 ms); backward: 10*2*8*4096^2*40 =
+    # 107,374,182,400 FLOPs over 989e12 (bytes 7*2,621,440*4 + 2*262,144 =
+    # 73,924,608: 0.0221 ms; exponentials 0.0695 ms)
+    ((2, 4096, 8, 40), "exponentials", 268435456 / (132 * 16 * 1.83e9) * 1e3,
+     "operations", 107374182400 / 989e12 * 1e3),
+    # D = 8: 64*2304^2 = 339,738,624 exponentials bind both directions
+    # (forward FLOPs 0.0110 ms, backward 0.0275 ms)
+    ((1, 2304, 64, 8), "exponentials", 339738624 / (132 * 16 * 1.83e9) * 1e3,
+     "exponentials", 339738624 / (132 * 16 * 1.83e9) * 1e3),
+])
+def test_k1_train_bounds_by_hand(shape, lse_by, lse_ms, bwd_by, bwd_ms):
+    """chip_smoke.py's bounds of K1 f32 (with the row LSE) and K1-bwd at the
+    largest 512x512 training shape and the encoder UNet's D = 8 attention
+    of the 768x768 step, worked by hand."""
+    import chip_smoke as cs
+    bnd, by = cs.attention_bound(*shape, 4, lse=True)
+    assert (by, bnd) == (lse_by, pytest.approx(lse_ms, rel=1e-9))
+    bnd, by = cs.attention_bound(*shape, 4, backward=True)
+    assert (by, bnd) == (bwd_by, pytest.approx(bwd_ms, rel=1e-9))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -270,15 +371,16 @@ def _within(out, ref, rel_l2=1e-2, rel_max=2e-2):
 
 @pytest.mark.cuda
 def test_kernels_on_card(cuda_device):
-    """K1, K2 and K3 against their plain versions on the card, bf16 and
-    f32 (ragged sequence lengths and image edges, Cout 64, 128 and 192, the
-    row log-sum-exp)."""
+    """K1, K1-bwd, K2 and K3 against their plain versions on the card, bf16
+    and f32 (ragged sequence lengths and image edges, head dims 8 to 160,
+    Cout 64, 128 and 192, the row log-sum-exp, K1-bwd's determinism)."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*s):
         return torch.randn(s, generator=g, device=cuda_device)
 
-    for (b, n, h, d) in [(1, 2304, 8, 80), (2, 300, 2, 40), (1, 200, 1, 160)]:
+    for (b, n, h, d) in [(1, 2304, 8, 80), (2, 300, 2, 40), (1, 200, 1, 160),
+                         (1, 330, 4, 8)]:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (rnd(b, n, h, d).to(dtype) for _ in range(3))
             out, lse = k1.flash_attention_cuda(q, k, v, d ** -0.5,
@@ -286,6 +388,19 @@ def test_kernels_on_card(cuda_device):
             assert _within(out, k1.attention_plain(q, k, v, d ** -0.5))
             lse_ref = k1.attention_lse_plain(q, k, d ** -0.5)
             assert (lse - lse_ref).abs().max() <= 2e-2
+            if dtype != torch.float32 or d > k1.MAX_HEAD_DIM_BWD:
+                continue
+            # K1-bwd in f32 (the training path), ragged N, D = 8 to 80, and
+            # bit-identical on a second launch (no atomics)
+            dout = rnd(b, n, h, d)
+            di = (out * dout).sum(-1).transpose(1, 2).contiguous()
+            grads = k1.flash_attention_bwd_cuda(q, k, v, dout, lse, di,
+                                                d ** -0.5)
+            refs = k1.attention_bwd_plain(q, k, v, out, dout, lse, d ** -0.5)
+            assert all(_within(a, r) for a, r in zip(grads, refs))
+            again = k1.flash_attention_bwd_cuda(q, k, v, dout, lse, di,
+                                                d ** -0.5)
+            assert all(torch.equal(a, b) for a, b in zip(grads, again))
     for (b, h, w_, cin, cout) in [(2, 24, 40, 64, 64), (1, 20, 36, 128, 128),
                                   (1, 20, 36, 64, 192), (1, 48, 48, 256, 192)]:
         for dtype in (torch.bfloat16, torch.float32):

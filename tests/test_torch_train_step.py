@@ -2,10 +2,10 @@
 
 Three steps of the JAX ``make_train_step`` (``grad_accum=1``; its body,
 ``onedc_tpu/train/step.py:184-199``, written out with one jitted
-``value_and_grad`` reused across the steps and a jitted optax update, so
-that the first step's prediction and gradients can be read too) against
-three steps of the port's ``make_train_step`` on the same tiny weights,
-the same 128x128 images and the same noise: JAX draws it
+``value_and_grad`` reused across the steps and the optax update run op
+by op, so that the first step's prediction and gradients can be read
+too) against three steps of the port's ``make_train_step`` on the same
+tiny weights, the same 128x128 images and the same noise: JAX draws it
 (``jax.random.uniform(key, y_res.shape, f32, -0.5, 0.5)``, the call at
 ``models/codec.py:291``) and the port is handed it. Warmup 2, so the first
 update has lr 0. Also the optimizer against optax on a small tree, the
@@ -87,7 +87,12 @@ def runs():
         return total, (ld, pred)
 
     grad_fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-    apply = jax.jit(lambda st, g: st.apply_gradients(grads=g))
+
+    # the optax update runs op by op: jitting it took ~70 s of XLA compile
+    # on a CPU, against ~45 s of op-by-op compiles and runs for three steps
+    def apply(st, g):
+        return st.apply_gradients(grads=g)
+
     state = jstep.create_train_state(jm, params, lr=LR, warmup_steps=WARMUP,
                                      grad_clip=CLIP, frozen=("vae",))
     jax_run = dict(metrics=[], params=[state_dict_from_jax(params)])
