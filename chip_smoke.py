@@ -6,16 +6,20 @@
 2. Builds the CUDA kernels (nvcc, one process per source) and the rANS
    coder (g++) from the sources in this checkout.
 3. Kernel phase: each kernel against its plain PyTorch version at the
-   shapes the decode path (bf16) and the training step (f32) give it, with
-   the tolerance stated below: K1 (flash attention forward), K1-bwd (its
-   backward), K2 (GN-affine + SiLU + conv3x3) and K3 (conv3x3, K2's input
-   gradient), and K2's autograd backward against autograd of its plain
-   version; CUDA event times of the kernel (through its wrapper), the
+   shapes the decode and encode paths (bf16) and the training step (f32)
+   give it, with the tolerance stated below: K1 (flash attention forward),
+   K1-bwd (its backward), K2 (GN-affine + SiLU + conv3x3) and K3 (conv3x3,
+   K2's input gradient), and K2's autograd backward against autograd of its
+   plain version; CUDA event times of the kernel (through its wrapper), the
    plain version and one PyTorch library call for the same function (for
    the f32 kernels also that call in bf16 on the bf16-rounded operands,
    the arithmetic they do: cuDNN for K2 f32 and K3, SDPA and its backward
    for K1 f32 and K1-bwd); the card's bound for the same work; K1-bwd
-   launched twice on the same inputs must give the same bits.
+   launched twice on the same inputs must give the same bits. A ragged
+   sub-phase runs the card-only cases of
+   ``tests/test_torch_attention_conv.py::test_kernels_on_card`` (ragged
+   sequences and images, head dims 8 to 160, Cout 64 to 192) and K1-bwd in
+   bf16.
 4. Decode path: the full-width OneDC (lambda family: codec 512/128, FSQ
    [4]*7, SD1.5 UNet, SD2.1 VAE) on weights drawn from a seeded
    generator, in bf16. Writes two 768x768 streams and one 512x768 stream
@@ -23,7 +27,18 @@
    with ``OneDCRuntime.decode`` and all three with ``decode_batch``, and
    checks symbols, y_hat, images and kernel launch counts, and that a row
    of a batch decodes the same whatever stream shares its batch.
-5. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
+5. Encode path, on the same runtime: seeded synthetic images (two 768x768,
+   one 512x768, one 500x700) through ``encode``, ``encode_batch`` (the
+   768x768 pair) and ``encode_many`` (all four); every stream decodes to
+   its writer's write plan (indexes, symbols, y_hat) bit for bit, launches
+   per encode as ENCODE_PER_CALL, no symbol reaches the coder's clamp;
+   encode wall ms and its device / host split.
+6. z-only path: ``OneDC(z_only=True)`` with the lambda model's weights in
+   bf16 encodes (no y stream) and decodes the 768x768 and 512x768 images,
+   with the decode's launch counts, and ``decode_batch`` of both.
+7. TF32 probe (printed, not a check): on a full-width f32 runtime, how many
+   CDF indexes and symbols of a 512x768 write plan move when TF32 is on.
+8. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
    overrides in ``TRAIN_OVERRIDES``, full width, f32, random seeded
    weights, seeded synthetic 1024x1024 images: two steps at 512x512
    (batch 2) and one at 768x768 (batch 1). Checks finite metrics, the
@@ -31,8 +46,11 @@
    first step (lr 0) and changed by the next, every kernel's launches per
    step, and a finite non-zero gradient on the first UNet ``attn1.to_q``
    (it arrives only through K1-bwd and K3).
-6. Prints ``{"kernels": [...]}``, the card line and, last, the device line.
+9. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
+   decode_z_only, train), the card line and, last, the device line.
 
+The whole run holds the numerics the package pins in its entry points
+(``onedc_tpu_torch/utils/numerics.py``).
 Any failed check raises, and the script exits non-zero.
 """
 
@@ -97,10 +115,17 @@ H100_EXP_PER_S = 132 * 16 * 1.83e9
 # shapes the decode path gives the kernels, with their launches per decode
 # call of one bucket (768x768; K1 at /8 and /16, K2 in every VAE resnet);
 # "batch2" checks the batch index of each kernel at one shape of the
-# two-stream bucket that decode_batch runs
+# two-stream bucket that decode_batch runs; "encode768" holds the shapes of
+# one 768x768 encode (K1: the encoder UNet's /16 attention, 64 heads of 8;
+# K2: the VAE encoder's 10 resnets), "encode512x704" K1's one shape of a
+# 500x700 encode (padded to 512x704): the VAE mid-block's single 512-wide
+# head over its whole 64x88 grid, which is not a multiple of its 16-pixel
+# window (the ragged decode launches it once more, in the VAE decoder)
 K1_SHAPES = {"768x768": [((1, 9216, 8, 40), 5), ((1, 2304, 8, 80), 5)],
              "512x768": [((1, 6144, 8, 40), 5)],
-             "batch2": [((2, 2304, 8, 80), 5)]}
+             "batch2": [((2, 2304, 8, 80), 5)],
+             "encode768": [((1, 2304, 64, 8), 2)],
+             "encode512x704": [((1, 5632, 1, 512), 1)]}
 K2_SHAPES = {"768x768": [((1, 96, 96, 512, 512), 10),
                          ((1, 192, 192, 512, 512), 6),
                          ((1, 384, 384, 512, 256), 1),
@@ -113,9 +138,38 @@ K2_SHAPES = {"768x768": [((1, 96, 96, 512, 512), 10),
                          ((1, 256, 384, 256, 256), 5),
                          ((1, 512, 768, 256, 128), 1),
                          ((1, 512, 768, 128, 128), 5)],
-             "batch2": [((2, 96, 96, 512, 512), 10)]}
-K1_PER_CALL = {"768x768": 10, "512x768": 5}
-K2_PER_CALL = {"768x768": 28, "512x768": 28}
+             "batch2": [((2, 96, 96, 512, 512), 10)],
+             "encode768": [((1, 768, 768, 128, 128), 4),
+                           ((1, 384, 384, 128, 256), 1),
+                           ((1, 384, 384, 256, 256), 3),
+                           ((1, 192, 192, 256, 512), 1),
+                           ((1, 192, 192, 512, 512), 3),
+                           ((1, 96, 96, 512, 512), 8)]}
+# launches per decode; a 500x700 stream (512x704 padded) launches K1 at /8
+# (5632 tokens) and in the VAE decoder's mid-block
+K1_PER_CALL = {"768x768": 10, "512x768": 5, "512x704": 6}
+K2_PER_CALL = {"768x768": 28, "512x768": 28, "512x704": 28}
+# launches (K1, K2) per encode of one image, by padded size: the encoder
+# UNet's attention reaches K1 only from 2048 tokens at /16 (2304 at
+# 768x768, 1536 at 512x768, 1408 at 512x704); at 512x704 the VAE encoder's
+# mid-block attends over its whole grid (5632 tokens) in K1
+ENCODE_PER_CALL = {(768, 768): (2, 20), (512, 768): (0, 20),
+                   (512, 704): (1, 20)}
+# the encode phase's images (h, w): two 768x768, one 512x768 and a ragged
+# one that pads to 512x704
+ENCODE_SIZES = [(768, 768), (768, 768), (512, 768), (500, 700)]
+# the card-only cases of tests/test_torch_attention_conv.py::
+# test_kernels_on_card: K1 (B, N, H, D) in bf16 and f32 with the row
+# log-sum-exp (K1-bwd in f32 where D <= 128, and in bf16 at the shapes of
+# K1_BWD_BF16); K2 in both dtypes and K3 (B, H, W, Cin, Cout) on ragged
+# images. Same limits as the kernel phase; the LSE at most 2e-2 off.
+RAGGED_K1 = [(1, 2304, 8, 80), (2, 300, 2, 40), (1, 200, 1, 160),
+             (1, 330, 4, 8)]
+# K1 at D = 512, which it takes in bf16 only (f32 raises), on ragged N and M
+RAGGED_K1_WIDE = [(2, 200, 2, 512)]
+K1_BWD_BF16 = [(2, 300, 2, 40), (1, 2304, 8, 80)]
+RAGGED_K2 = [(2, 24, 40, 64, 64), (1, 20, 36, 128, 128), (1, 20, 36, 64, 192),
+             (1, 48, 48, 256, 192)]
 
 # shapes the training step gives the kernels (f32), with their launches per
 # step: "train512" is a 512x512 step of batch 2, "train768" a 768x768 step
@@ -469,9 +523,10 @@ def check_k1_train(gen: torch.Generator):
                   f"{plain:.4f} sdpa {lib:.4f} sdpa-bf16 {lib_bf16:.4f} bound "
                   f"{bnd:.4f} ({by})", flush=True)
 
-            # the kernel takes the forward kernel's out and lse; the plain
-            # backward the plain ones, so a wrong lse shows here too
-            di = (out * dout).sum(-1).transpose(1, 2).contiguous()
+            # the kernel takes the forward kernel's out and lse (di from
+            # them as autograd passes it, ``bwd_di``); the plain backward
+            # the plain ones, so a wrong lse shows here too
+            di = k1.bwd_di(out, dout)
             grads = k1.flash_attention_bwd_cuda(q, k, v, dout, lse, di, scale)
             refs = k1.attention_bwd_plain(q, k, v, out_plain, dout, lse_plain,
                                           scale)
@@ -636,6 +691,93 @@ def check_k2_k3_train(gen: torch.Generator):
     return k2_rows, k3_rows
 
 
+def check_ragged(gen: torch.Generator):
+    """The card-only cases of ``test_kernels_on_card`` (RAGGED_K1,
+    RAGGED_K2), each with its one-block-left-out check, K1-bwd in bf16
+    (K1_BWD_BF16), which no path of the port runs yet, and K1 at D = 512
+    (RAGGED_K1_WIDE). Returns the number of checks."""
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    checks = 0
+    for shape in RAGGED_K1 + RAGGED_K1_WIDE:
+        b, n, h, d = shape
+        scale = d ** -0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = f"{shape} {str(dtype)[6:]}"
+            q, k, v = (rnd(*shape).to(dtype) for _ in range(3))
+            if d > k1.MAX_HEAD_DIM and dtype == torch.float32:
+                try:
+                    k1.flash_attention_cuda(q, k, v, scale)
+                except ValueError:
+                    print(f"ragged K1 {tag}: refused, as it should be",
+                          flush=True)
+                    continue
+                raise AssertionError(f"K1 took {tag}")
+            out, lse = k1.flash_attention_cuda(q, k, v, scale, with_lse=True)
+            out_plain = k1.attention_plain(q, k, v, scale)
+            compare(f"ragged K1 {tag}", out, out_plain,
+                    k1.attention_plain(q, k[:, 64:], v[:, 64:], scale))
+            lse_plain = k1.attention_lse_plain(q, k, scale)
+            lse_max = (lse - lse_plain).abs().max().item()
+            print(f"ragged K1 {tag}: lse max err {lse_max:.3e} (tol "
+                  f"{LSE_MAX_TOL})", flush=True)
+            if lse_max > LSE_MAX_TOL:
+                raise AssertionError(f"ragged K1 {tag}: lse disagrees")
+            checks += 2
+            bf16_bwd = dtype == torch.bfloat16 and shape in K1_BWD_BF16
+            if d > k1.MAX_HEAD_DIM_BWD or not (dtype == torch.float32
+                                               or bf16_bwd):
+                continue
+            dout = rnd(*shape).to(dtype)
+            di = k1.bwd_di(out, dout)
+            grads = k1.flash_attention_bwd_cuda(q, k, v, dout, lse, di, scale)
+            refs = k1.attention_bwd_plain(q, k, v, out_plain, dout,
+                                          lse_plain, scale)
+            skip_key = k1.attention_bwd_plain(q, k[:, 64:], v[:, 64:],
+                                              out_plain, dout, lse_plain,
+                                              scale)
+            skip_query = k1.attention_bwd_plain(
+                q[:, 64:], k, v, out_plain[:, 64:], dout[:, 64:],
+                lse_plain[..., 64:], scale)
+            for name, g, r, m in zip(("dQ", "dK", "dV"), grads, refs,
+                                     (skip_key[0], skip_query[1],
+                                      skip_query[2])):
+                compare(f"ragged K1-bwd {name} {tag}", g, r, m)
+            again = k1.flash_attention_bwd_cuda(q, k, v, dout, lse, di, scale)
+            if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+                raise AssertionError(f"K1-bwd {tag}: two launches on the same "
+                                     f"inputs differ")
+            print(f"ragged K1-bwd {tag}: a second launch gives bit-identical "
+                  f"dQ, dK, dV", flush=True)
+            checks += 4
+    chunk = k2.CHANNEL_MULTIPLE
+    for shape in RAGGED_K2:
+        b, hh, ww, cin, cout = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            x, mul, add, w, bias = _conv_inputs(gen, *shape, dtype=dtype)
+            w_skip = w.clone()
+            w_skip[:, :, :chunk] = 0
+            compare(f"ragged K2 {shape} {str(dtype)[6:]}",
+                    k2.affine_silu_conv3x3(x, mul, add, w, bias),
+                    k2.affine_silu_conv3x3_plain(x, mul, add, w, bias),
+                    k2.affine_silu_conv3x3_plain(x, mul, add, w_skip, bias))
+            checks += 1
+        # K3: the input gradient (b, hh, ww, cin -> cout) of a conv cout ->
+        # cin
+        g, w = rnd(b, hh, ww, cin), rnd(3, 3, cout, cin) / (9 * cin) ** 0.5
+        w_skip = w.clone()
+        w_skip[..., :chunk] = 0
+        compare(f"ragged K3 {shape}", k2.conv3x3_dx_cuda(g, w),
+                k2.conv3x3_dx_plain(g, w), k2.conv3x3_dx_plain(g, w_skip))
+        checks += 1
+    torch.cuda.empty_cache()
+    return checks
+
+
 def summarize(name, source, replaces, rows, launches, main_bucket):
     """One kernel's line entry: ``ms`` etc. are the times of one call of
     ``main_bucket`` (a 768x768 decode, or a 512x512 training step of batch
@@ -684,15 +826,8 @@ def check_batch(rt, written, singles, counts):
     """decode_batch of all streams against the single decodes; then, per
     768x768 stream, a batch of that stream twice: its row must equal the
     row the stream got beside the other stream, bit for bit."""
-    def launched(fn):
-        before = (counts[0].launches, counts[1].launches)
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (counts[0].launches - before[0],
-                     counts[1].launches - before[1])
-
     streams = [s for s, _, _ in written]
-    batch, got = launched(lambda: rt.decode_batch(streams))
+    batch, got = counted(counts, lambda: rt.decode_batch(streams))
     want = (K1_PER_CALL["768x768"] + K1_PER_CALL["512x768"],
             K2_PER_CALL["768x768"] + K2_PER_CALL["512x768"])
     if got != want:
@@ -713,7 +848,8 @@ def check_batch(rt, written, singles, counts):
     if not torch.equal(batch[2], singles[2]):
         raise AssertionError("a one-stream bucket differs from decode")
     for row in (0, 1):
-        twice, got = launched(lambda: rt.decode_batch([streams[row]] * 2))
+        twice, got = counted(counts,
+                             lambda: rt.decode_batch([streams[row]] * 2))
         if got != (K1_PER_CALL["768x768"], K2_PER_CALL["768x768"]):
             raise AssertionError(f"decode_batch launched K1/K2 {got}")
         if not torch.equal(twice[row], batch[row]):
@@ -725,15 +861,11 @@ def check_batch(rt, written, singles, counts):
               f"other: {same}", flush=True)
 
 
-def main_path(seed: int):
-    from onedc_tpu_torch.models.onedc import OneDC, OneDCRuntime
+def main_path(rt, seed: int):
+    """The decode phase on the bf16 runtime ``rt``; returns the K1 and K2
+    launches of its decodes."""
     from onedc_tpu_torch.ops import conv3x3 as k2
     from onedc_tpu_torch.ops import flash_attention as k1
-
-    with torch.device("cuda"):
-        model = OneDC()
-    init_random_weights(model, seed)
-    rt = OneDCRuntime(model, dtype=torch.bfloat16)
 
     sizes = [(768, 768), (768, 768), (512, 768)]
     written = [write_synthetic_stream(rt, h, w, seed + i)
@@ -803,6 +935,264 @@ def main_path(seed: int):
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           f" GiB", flush=True)
     return launches
+
+
+def encode_images(seed: int):
+    """ENCODE_SIZES images from ``synthetic_batches``: (1, h, w, 3) f32
+    crops of seeded 768x768 images."""
+    batch = next(synthetic_batches(seed, len(ENCODE_SIZES), 768))["image"]
+    return [np.ascontiguousarray(im[None, :h, :w])
+            for im, (h, w) in zip(batch, ENCODE_SIZES)]
+
+
+def padded_size(h: int, w: int, ds: int = 64):
+    return (-(-h // ds) * ds, -(-w // ds) * ds)
+
+
+def counted(counts, fn):
+    """(fn(), (K1, K2) launches it made), after a device synchronise."""
+    before = tuple(c.launches for c in counts)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, tuple(c.launches - b for c, b in zip(counts, before))
+
+
+def check_stream_decodes_to_plan(rt, stream, plan, row: int, what: str):
+    """``rt.decode(stream)`` reads, at every step, the indexes and symbols of
+    row ``row`` of the write plan ``plan`` and rebuilds its y_hat, bit for
+    bit. Returns the decoded image."""
+    trace = {}
+    img = rt.decode(stream, trace)
+    for s, (idx, sym) in enumerate(trace["steps"]):
+        want_idx = plan["indexes_w"][s][row:row + 1].cpu().numpy()
+        want_sym = plan["y_q_w"][s][row:row + 1].cpu().numpy()
+        if not (np.array_equal(idx, want_idx)
+                and np.array_equal(sym, want_sym)):
+            raise AssertionError(
+                f"{what}: step {s}: {int((idx != want_idx).sum())} indexes "
+                f"and {int((sym != want_sym).sum())} symbols differ from the "
+                f"writer's plan")
+    if not torch.equal(trace["y_hat"], plan["y_hat"][row:row + 1]):
+        raise AssertionError(f"{what}: y_hat differs from the writer's plan")
+    return img
+
+
+def check_symbols_fit(plan, what: str) -> int:
+    """Every symbol of the plan lies inside the coder's clamp (so neither
+    the clamp nor int16 changed one); returns the largest magnitude."""
+    from onedc_tpu_torch.models.codec import SYMBOL_LIMIT
+
+    top = max(int(a.abs().max().item()) for a in plan["y_q_w"])
+    if top >= SYMBOL_LIMIT:
+        raise AssertionError(f"{what}: a symbol of magnitude {top} reached "
+                             f"the coder's clamp")
+    return top
+
+
+def encode_path(rt, seed: int):
+    """The encode phase on the decode phase's bf16 runtime: ``encode`` of
+    each ENCODE_SIZES image, ``encode_batch`` of the 768x768 pair and
+    ``encode_many`` of all four; every stream decodes to its writer's plan
+    bit for bit. Returns the K1 and K2 launches of the phase's encodes."""
+    from onedc_tpu_torch.models.runtime import WRITE_KEYS, host_arrays
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+
+    counts = (k1, k2)
+    images = encode_images(seed)
+    k1.launches = 0
+    k2.launches = 0
+    singles = []
+    for (h, w), im in zip(ENCODE_SIZES, images):
+        (stream, bpp), got = counted(counts, lambda: rt.encode(im))
+        want = ENCODE_PER_CALL[padded_size(h, w)]
+        if got != want:
+            raise AssertionError(f"{h}x{w} encode launched K1/K2 {got}, "
+                                 f"expected {want}")
+        singles.append(stream)
+        print(f"encode {h}x{w}: {len(stream)} bytes, {bpp['bpp']:.4f} bpp "
+              f"(y {bpp['bpp_y']:.4f}, z {bpp['bpp_z']:.5f}); K1/K2 launches "
+              f"{got}", flush=True)
+    pair = np.concatenate(images[:2])
+    # a batch launches each kernel once per layer, as one image does
+    batch, got = counted(counts, lambda: rt.encode_batch(pair))
+    if got != ENCODE_PER_CALL[(768, 768)]:
+        raise AssertionError(f"encode_batch launched K1/K2 {got}")
+    # encode_many: one chunk per size
+    many, got = counted(counts, lambda: rt.encode_many(images))
+    want = tuple(map(sum, zip(*(ENCODE_PER_CALL[padded_size(h, w)]
+                                for h, w in set(ENCODE_SIZES)))))
+    if got != want:
+        raise AssertionError(f"encode_many launched K1/K2 {got}, expected "
+                             f"{want}")
+    launches = {"K1": k1.launches, "K2": k2.launches}
+
+    # every stream against its writer's plan: the single encodes' and
+    # encode_many's one-image chunks against the plan of the image alone,
+    # encode_batch's and encode_many's 768x768 chunk against the pair's
+    pair_plan = rt.write_plan(pair)
+    top = check_symbols_fit(pair_plan, "pair")
+    for i, ((h, w), im) in enumerate(zip(ENCODE_SIZES, images)):
+        plan = rt.write_plan(im)
+        top = max(top, check_symbols_fit(plan, f"{h}x{w}"))
+        img, got = counted(counts, lambda: check_stream_decodes_to_plan(
+            rt, singles[i], plan, 0, f"encode {h}x{w}"))
+        bucket = "{}x{}".format(*padded_size(h, w))
+        if got != (K1_PER_CALL[bucket], K2_PER_CALL[bucket]):
+            raise AssertionError(f"{h}x{w} decode launched K1/K2 {got}")
+        if img.shape != (1, h, w, 3) or not torch.isfinite(img).all():
+            raise AssertionError(f"encode {h}x{w}: bad image "
+                                 f"{tuple(img.shape)}")
+        if i < 2:
+            for name, streams in (("encode_batch", batch), ("encode_many",
+                                                            many)):
+                check_stream_decodes_to_plan(rt, streams[i][0], pair_plan, i,
+                                             f"{name}[{i}]")
+        else:
+            check_stream_decodes_to_plan(rt, many[i][0], plan, 0,
+                                         f"encode_many[{i}]")
+    print(f"every stream of encode, encode_batch and encode_many decodes to "
+          f"its writer's indexes, symbols and y_hat; largest |symbol| {top}",
+          flush=True)
+    same = [b[0] == s for b, s in zip(batch, singles)]
+    print(f"encode_batch bytes equal the single encodes': {same}; "
+          f"encode_many: {[m[0] == s for m, s in zip(many, singles)]}",
+          flush=True)
+
+    # timing, after the counted run
+    wall = {}
+    for i in (0, 2, 3):
+        h, w = ENCODE_SIZES[i]
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            rt.encode(images[i])
+            ts.append((time.perf_counter() - t0) * 1e3)
+        wall[f"{h}x{w}"] = ts
+    split = {"device": [], "host_write": []}
+    crt = rt._codec_rt
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plan = rt.write_plan(images[0])
+        host = {k: host_arrays(plan[k]) for k in WRITE_KEYS}
+        t1 = time.perf_counter()
+        crt.write_streams(host, 768, 768)
+        t2 = time.perf_counter()
+        split["device"].append((t1 - t0) * 1e3)
+        split["host_write"].append((t2 - t1) * 1e3)
+    t0 = time.perf_counter()
+    rt.encode_many(images)
+    many_ms = (time.perf_counter() - t0) * 1e3
+    print("encode wall ms " + json.dumps(wall), flush=True)
+    print("768x768 encode split ms (device half to host arrays, host rANS "
+          "write) " + json.dumps(split), flush=True)
+    print(f"encode_many of the four images: {many_ms:.1f} ms", flush=True)
+    return launches
+
+
+def z_only_path(rt, seed: int):
+    """The z-only phase: ``OneDC(z_only=True)`` with the lambda runtime's
+    state dict, in bf16. Encodes the 768x768 and 512x768 images (no y
+    stream), decodes each (launches as the lambda decode's: the same UNet
+    and VAE) and both with ``decode_batch``. Returns the K1 and K2
+    launches of its decodes."""
+    from onedc_tpu_torch.models.onedc import OneDC, OneDCRuntime
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+
+    with torch.device("cuda"):
+        model = OneDC(z_only=True)
+    zrt = OneDCRuntime(model, state=rt.model.state_dict(),
+                       dtype=torch.bfloat16)
+    images = encode_images(seed)
+    streams = []
+    for i in (0, 2):
+        stream, bpp = zrt.encode(images[i])
+        h, w = ENCODE_SIZES[i]
+        if bpp["bits_y"] != 0:
+            raise AssertionError(f"z-only {h}x{w}: bits_y {bpp['bits_y']}")
+        streams.append(stream)
+        print(f"z-only encode {h}x{w}: {len(stream)} bytes, "
+              f"{bpp['bpp']:.5f} bpp", flush=True)
+    counts = (k1, k2)
+    k1.launches = 0
+    k2.launches = 0
+    singles = []
+    for i, stream in zip((0, 2), streams):
+        h, w = ENCODE_SIZES[i]
+        img, got = counted(counts, lambda: zrt.decode(stream))
+        want = (K1_PER_CALL[f"{h}x{w}"], K2_PER_CALL[f"{h}x{w}"])
+        if got != want:
+            raise AssertionError(f"z-only {h}x{w} decode launched K1/K2 "
+                                 f"{got}, expected {want}")
+        if img.shape != (1, h, w, 3) or not torch.isfinite(img).all():
+            raise AssertionError(f"z-only {h}x{w}: bad image "
+                                 f"{tuple(img.shape)}")
+        singles.append(img)
+        print(f"z-only decode {h}x{w}: K1/K2 launches {got}; image range "
+              f"[{img.min().item():.3f}, {img.max().item():.3f}]", flush=True)
+    batch = zrt.decode_batch(streams)
+    # two sizes: two one-stream buckets, the programs of decode
+    if not all(torch.equal(a, b) for a, b in zip(batch, singles)):
+        raise AssertionError("z-only decode_batch differs from decode or "
+                             "lost the input order")
+    launches = {"K1": k1.launches, "K2": k2.launches}
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        zrt.decode(streams[0])
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    print(f"z-only decode_batch returns each image in input order; z-only "
+          f"768x768 decode wall ms {json.dumps(ts)}", flush=True)
+    return launches
+
+
+def tf32_probe(seed: int):
+    """Printed, not a check: on a full-width f32 runtime, a 512x768 write
+    plan with TF32 on (cuDNN and cuBLAS) against the pinned plan, and a
+    reader with TF32 on against the pinned plan's indexes (the decoder's
+    programs on the pinned plan's z and symbols)."""
+    from onedc_tpu_torch.models.onedc import OneDC, OneDCRuntime
+
+    with torch.device("cuda"):
+        model = OneDC()
+    init_random_weights(model, seed)
+    rt = OneDCRuntime(model)
+    image = encode_images(seed)[2]
+    pinned = rt.write_plan(image)
+    codec = rt.model.codec
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=True):
+            tf32 = rt.model.encode_device(rt.pad(image))
+            st = codec.decompress_begin(pinned["z_indices"])
+            reader = []
+            for step in range(4):
+                reader.append(st["indexes_r"])
+                st.update(codec.decompress_update(
+                    step, pinned["y_q_w"][step], st["means"], st["y_hat"],
+                    st["common"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+    n = pinned["indexes_w"][0].numel()
+    out = {
+        "z_indices_differ": int((tf32["z_indices"]
+                                 != pinned["z_indices"]).sum()),
+        "z_indices": pinned["z_indices"].numel(),
+        "writer_indexes_differ": [int((a != b).sum()) for a, b in zip(
+            tf32["indexes_w"], pinned["indexes_w"])],
+        "writer_symbols_differ": [int((a != b).sum()) for a, b in zip(
+            tf32["y_q_w"], pinned["y_q_w"])],
+        "reader_indexes_differ": [int((a != b).sum()) for a, b in zip(
+            reader, pinned["indexes_w"])],
+        "per_step": n,
+    }
+    print("TF32 probe (f32 runtime, 512x768, TF32 on against pinned) "
+          + json.dumps(out), flush=True)
+    return out
 
 
 def synthetic_batches(seed: int, batch: int, size: int = 1024):
@@ -921,7 +1311,9 @@ def main():
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    from onedc_tpu_torch.models.onedc import OneDC, OneDCRuntime
     from onedc_tpu_torch.ops import build
+    from onedc_tpu_torch.utils.numerics import pinned_numerics
 
     t0 = time.perf_counter()
     build.build_all()
@@ -930,35 +1322,52 @@ def main():
     for name in build.CUDA_SOURCES:
         print(f"ptxas {name}:\n{build.ptxas_report(name)}", flush=True)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
+    # the numerics the package pins in its entry points, here for the whole
+    # run: the kernel phase's library baselines and the direct calls of the
+    # model's programs that the checks make
+    with pinned_numerics():
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(args.seed)
+        k1_rows = check_k1(gen)
+        k2_rows = check_k2(gen)
+        k1t_rows, k1b_rows = check_k1_train(gen)
+        k2t_rows, k3_rows = check_k2_k3_train(gen)
+        n_ragged = check_ragged(gen)
+        print(f"ragged sub-phase: {n_ragged} checks passed", flush=True)
+        torch.cuda.empty_cache()
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(args.seed)
-    k1_rows = check_k1(gen)
-    k2_rows = check_k2(gen)
-    k1t_rows, k1b_rows = check_k1_train(gen)
-    k2t_rows, k3_rows = check_k2_k3_train(gen)
-    torch.cuda.empty_cache()
-
-    decode = main_path(args.seed)
-    torch.cuda.empty_cache()
-    train, records = train_path(args.seed)
+        with torch.device("cuda"):
+            model = OneDC()
+        init_random_weights(model, args.seed)
+        rt = OneDCRuntime(model, dtype=torch.bfloat16)
+        decode = main_path(rt, args.seed)
+        encode = encode_path(rt, args.seed)
+        z_only = z_only_path(rt, args.seed)
+        print(f"peak device memory (decode, encode, z-only) "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        del rt, model
+        torch.cuda.empty_cache()
+        tf32_probe(args.seed)
+        torch.cuda.empty_cache()
+        train, records = train_path(args.seed)
 
     kernels = [
         summarize("flash_attention_fwd",
                   "onedc_tpu_torch/csrc/flash_attention.cu",
                   "onedc_tpu/nn/attention.py:43", k1_rows + k1t_rows,
-                  {"decode": decode["K1"], "train": train["K1"]}, "768x768"),
+                  {"decode": decode["K1"], "encode": encode["K1"],
+                   "decode_z_only": z_only["K1"], "train": train["K1"]},
+                  "768x768"),
         summarize("flash_attention_bwd",
                   "onedc_tpu_torch/csrc/flash_attention_bwd.cu",
                   "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
                   k1b_rows, {"train": train["K1-bwd"]}, "train512"),
         summarize("gn_silu_conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
                   "onedc_tpu/ops/pallas_conv.py:292", k2_rows + k2t_rows,
-                  {"decode": decode["K2"], "train": train["K2"]}, "768x768"),
+                  {"decode": decode["K2"], "encode": encode["K2"],
+                   "decode_z_only": z_only["K2"], "train": train["K2"]},
+                  "768x768"),
         summarize("conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
                   "onedc_tpu/ops/pallas_conv.py:89", k3_rows,
                   {"train": train["K3"]}, "train512"),

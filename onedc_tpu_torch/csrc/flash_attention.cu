@@ -23,11 +23,12 @@
 // (the training path, with the LSE). A block owns the query rows of one
 // (batch, head), 64 per consumer warpgroup (two; three for f32 up to
 // D = 48, where they fit: the rounding below is then shared by 192
-// rows), and has a producer. The
-// producer fills the Q tile once and K and V tiles through a 2-stage ring
-// guarded by mbarriers, as bf16 in the 128-byte swizzled layout, 64
-// columns per atom, the columns past D zero, so D is padded in shared
-// memory only:
+// rows; at D = 512, bf16 only, the two share 64 rows and split the output
+// columns, 256 each, with one stage of K and V), and has a producer. The
+// producer fills the Q tile once and K and V tiles through a ring of two
+// stages (one at D = 512) guarded by mbarriers, as bf16 in the 128-byte
+// swizzled layout, 64 columns per atom, the columns past D zero, so D is
+// padded in shared memory only:
 // - bf16: one producer warp loads by TMA from tensor maps over
 //   (D, H, N, B): a box of 64 columns lands swizzled, zero-filled past D;
 // - f32: a producer warpgroup rounds f32 to bf16 as it stages it (as the
@@ -35,13 +36,17 @@
 //   which TMA lands the Q tile and then each key tile's K and V rows
 //   densely, as they are in device memory (sm90::convert_staged; two
 //   staging stages up to D = 48, where key tiles are 128, and up to
-//   D = 80, where they are 64, one above).
+//   D = 80, where they are 64, one above); at D <= 16 it stages Q and K
+//   as bf16 hi and lo parts side by side, and S takes three k-steps, hi*hi
+//   + lo*hi + hi*lo (sm90::convert_staged_split), as the backward does
+//   there, so that the LSE and the output the backward reads come from the
+//   scores it recomputes (flash_attention_bwd.cu).
 //   setmaxnreg gives the consumers the producer's unused registers.
 // S = Q K^T runs on wgmma with both operands in shared memory (k = D
 // rounded up to 16); the online softmax folds the scale and the running
 // max into one FFMA per score before exp2; P is re-packed from S's
 // accumulator into registers as the A operand of O += P V (wgmma, V in
-// shared memory N-major: "transposed", N = 48, 80 or 160), f32
+// shared memory N-major: "transposed", N = 48, 80, 160 or 2 x 128), f32
 // accumulate. The two warpgroups run independently on the shared ring, so
 // one's softmax can overlap the other's products. The output is stored in
 // the input's type from the accumulators; the ragged N and M edges are
@@ -60,13 +65,21 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 namespace wg {
 
-constexpr int kStages = 2;        // K and V tiles in flight
-// the producer: one warp (bf16, TMA) or a warpgroup (f32)
+// K and V tiles in flight: two, and one at D = 512, where a 64-key tile of
+// each is 64 KB
+template <int DP>
+constexpr int kStages = DP <= 192 ? 2 : 1;
+// the producer: one warp (bf16, TMA) or a warpgroup: f32, and bf16 at
+// D = 512 (kCS = 2), where setmaxnreg gives its registers to the consumers
+template <typename T, int kCS>
+constexpr int kProducerWarps = kIsBf16<T> && kCS == 1 ? 1 : 4;
+// arrivals that fill a tile: the TMA thread's (bf16) or one per producer
+// warp (f32)
 template <typename T>
-constexpr int kProducerWarps = kIsBf16<T> ? 1 : 4;
-// kWG consumer warpgroups of 64 query rows and the producer
-template <typename T, int kWG>
-constexpr int kBlockThreads = (4 * kWG + kProducerWarps<T>) * 32;
+constexpr int kFillArrivals = kIsBf16<T> ? 1 : 4;
+// kWG consumer warpgroups and the producer
+template <typename T, int kWG, int kCS>
+constexpr int kBlockThreads = (4 * kWG + kProducerWarps<T, kCS>) * 32;
 // f32: the Q tile, then the K and V rows of each key tile, land densely
 // by TMA in a staging ring (capacity DV columns) that the producer
 // warpgroup rounds into the bf16 tiles; two stages where they fit
@@ -81,14 +94,23 @@ constexpr int kStgStages = kStgBytes<T, DV, BKV> <= 48 * 1024 ? 2 : 1;
 // = 512 x 128
 constexpr int kProducerRegs[2] = {104, 56};
 constexpr int kConsumerRegs[2] = {200, 152};
+// bf16 at D = 512: 128 x 24 + 256 x 240 = 384 x 168 (ptxas holds the block
+// to 168 a thread, and the consumers' 128 accumulators, 32 scores and 16
+// packed probabilities spill there)
+constexpr int kWideProducerRegs = 24;
+constexpr int kWideConsumerRegs = 240;
 
 }  // namespace wg
 
 // DP: D rounded up to 64 (the columns staged, 64 per 128-byte atom); DV: the
-// output columns computed (48, 80 or 160); BKV: keys per tile. The tensor
-// maps box bf16 rows swizzled (T = bf16) or f32 rows densely (T = float).
-template <int DP, int DV, int BKV, typename T, int kWG>
-__global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
+// output columns computed (16, 48, 80, 160 or 512); BKV: keys per tile. The
+// tensor maps box bf16 rows swizzled (T = bf16) or f32 rows densely (T =
+// float). kCS: warpgroups that share 64 query rows, each computing DV / kCS
+// of the output columns (2 at D = 512: 64 x 512 f32 accumulators are 256
+// registers a thread; each of the two computes the rows' scores and
+// softmax itself, and the product with its half of V).
+template <int DP, int DV, int BKV, typename T, int kWG, int kCS>
+__global__ void __launch_bounds__(wg::kBlockThreads<T, kWG, kCS>, 1)
     flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
@@ -97,8 +119,15 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
                            float scale_log2) {
   using namespace wg;
   using namespace sm90;
-  constexpr int kQRows = 64 * kWG;
+  constexpr int kQRows = 64 * kWG / kCS;
   constexpr int kConsumerWarps = 4 * kWG;
+  constexpr int kStages = wg::kStages<DP>;
+  constexpr int kDW = DV / kCS;                // output columns per warpgroup
+  constexpr int kPV = kDW <= 160 ? kDW : 128;  // columns per P V product
+  static_assert(kDW % kPV == 0 && (kCS == 1 || kPV % 64 == 0),
+                "a warpgroup's columns start on a 64-column atom");
+  // f32 at D <= 16: S from hi and lo parts of Q and K (see the top)
+  constexpr bool kSplitS = !kIsBf16<T> && DV == 16;
   constexpr int NA = DP / 64;               // 64-column atoms per row
   constexpr int kQBytes = NA * kQRows * 128;
   constexpr int kKVBytes = NA * BKV * 128;  // one K or V tile
@@ -128,10 +157,10 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
   const int lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
-    mbar_init(q_full, kProducerWarps<T>);
+    mbar_init(q_full, kFillArrivals<T>);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&k_full[s], kProducerWarps<T>);
-      mbar_init(&v_full[s], kProducerWarps<T>);
+      mbar_init(&k_full[s], kFillArrivals<T>);
+      mbar_init(&v_full[s], kFillArrivals<T>);
       mbar_init(&k_empty[s], kConsumerWarps);
       mbar_init(&v_empty[s], kConsumerWarps);
     }
@@ -146,8 +175,9 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
   // instruction less ahead of the main loop (warp >= ...) moved the
   // loop's code and cost the decode's D = 40 kernel 8 % on an H100
   if constexpr (kIsBf16<T>) {
-    if (warp == kConsumerWarps) {  // one thread issues every TMA load
-      if (lane == 0) {
+    if (kCS == 1 ? warp == kConsumerWarps : warp >= kConsumerWarps) {
+      if constexpr (kCS > 1) reg_dealloc<kWideProducerRegs>();
+      if (lane == 0 && warp == kConsumerWarps) {  // it issues every load
         mbar_arrive_expect_tx(q_full, kQBytes);
         for (int a = 0; a < NA; ++a) {
           tma_load_4d(sQ + a * kQRows * 128, &qmap, q_full, a * 64, h, n0, b);
@@ -177,7 +207,7 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
     // a stage) and then each key tile's K and V rows (step j + 1)
     reg_dealloc<kProducerRegs[kWG - 2]>();
     const int pt = threadIdx.x - kConsumerWarps * 32;
-    constexpr int kThreadsP = kProducerWarps<T> * 32;
+    constexpr int kThreadsP = kProducerWarps<T, kCS> * 32;
     auto staged = [&](int sf, int i) {  // i = 0: K (or Q), 1: V
       return stg + sf * kStgBytes<T, DV, BKV> + i * BKV * DV * 4;
     };
@@ -204,7 +234,12 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
       if (e == 0) {
         unsigned char* const dst[1] = {sQ};
         const T* const src[1] = {reinterpret_cast<const T*>(staged(sf, 0))};
-        convert_staged<DV, 1>(dst, src, kQRows, kQRows, D, pt, kThreadsP);
+        if constexpr (kSplitS) {
+          convert_staged_split<DV>(sQ, src[0], kQRows, kQRows, D, 1, pt,
+                                   kThreadsP);
+        } else {
+          convert_staged<DV, 1>(dst, src, kQRows, kQRows, D, pt, kThreadsP);
+        }
       } else {
         const int s = (e - 1) % kStages;
         const uint32_t ph = (((e - 1) / kStages) & 1) ^ 1;
@@ -214,7 +249,15 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
                                        sV + s * kKVBytes};
         const T* const src[2] = {reinterpret_cast<const T*>(staged(sf, 0)),
                                  reinterpret_cast<const T*>(staged(sf, 1))};
-        convert_staged<DV, 2>(dst, src, BKV, BKV, D, pt, kThreadsP);
+        if constexpr (kSplitS) {
+          convert_staged_split<DV>(dst[0], src[0], BKV, BKV, D, 2, pt,
+                                   kThreadsP);
+          unsigned char* const dv[1] = {dst[1]};
+          const T* const sv[1] = {src[1]};
+          convert_staged<DV, 1>(dv, sv, BKV, BKV, D, pt, kThreadsP);
+        } else {
+          convert_staged<DV, 2>(dst, src, BKV, BKV, D, pt, kThreadsP);
+        }
       }
       // this warp's stores before the async proxy (wgmma), one arrival
       fence_proxy_async();
@@ -234,19 +277,26 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
     return;
   }
 
-  if constexpr (!kIsBf16<T>) reg_alloc<kConsumerRegs[kWG - 2]>();
-  // consumers: warpgroup wgi owns query rows 64*wgi .. +63, warp wi of it
-  // rows 16*wi .. +15; the thread holds rows g and g + 8 of those
+  if constexpr (!kIsBf16<T>) {
+    reg_alloc<kConsumerRegs[kWG - 2]>();
+  } else if constexpr (kCS > 1) {
+    reg_alloc<kWideConsumerRegs>();
+  }
+  // consumers: warpgroup wgi owns query rows 64*rb .. +63 (rb = wgi / kCS)
+  // and output columns c0 .. c0 + kDW - 1, warp wi of it rows 16*wi .. +15;
+  // the thread holds rows g and g + 8 of those
   const int wgi = warp / 4;
+  const int rb = wgi / kCS;
+  const int c0 = (wgi % kCS) * kDW;
   const int wi = warp % 4;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int ksteps = (D + 15) / 16;
-  const uint32_t qaddr = smem_addr(sQ) + wgi * 64 * 128;
+  const int ksteps = (kSplitS ? 3 : 1) * ((D + 15) / 16);
+  const uint32_t qaddr = smem_addr(sQ) + rb * 64 * 128;
 
-  float oacc[DV / 2];
+  float oacc[kDW / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < kDW / 2; ++i) oacc[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
   mbar_wait(q_full, 0);
@@ -316,7 +366,7 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < kDW / 2; ++i) oacc[i] *= alpha[(i >> 1) & 1];
 
     // O += P V: the score accumulators of key blocks 2kk, 2kk+1 are the A
     // fragment of keys 16kk .. 16kk+15
@@ -333,14 +383,21 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
       // B: keys 16kk .. +15 (2048 bytes per 16 rows), N-major; 64-column
-      // atoms BKV*128 bytes apart, 8-row groups 1024 apart
-      wgmma_rs<DV>(oacc, pa[kk],
-                   desc_sw128(vaddr + kk * 2048, BKV * 128, 1024), 1);
+      // atoms BKV*128 bytes apart, 8-row groups 1024 apart; columns
+      // c0 + p*kPV .. +kPV-1 start at atom (c0 + p*kPV) / 64
+#pragma unroll
+      for (int p = 0; p < kDW / kPV; ++p) {
+        wgmma_rs<kPV>(oacc + p * kPV / 2, pa[kk],
+                      desc_sw128(vaddr + (c0 + p * kPV) / 64 * BKV * 128 +
+                                     kk * 2048,
+                                 BKV * 128, 1024),
+                      1);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) reg_fence(oacc[i]);
+    for (int i = 0; i < kDW / 2; ++i) reg_fence(oacc[i]);
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
@@ -355,11 +412,11 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
   }
   const float inv0 = 1.f / l_run[0];
   const float inv1 = 1.f / l_run[1];
-  const int r_lo = n0 + wgi * 64 + wi * 16 + g;
+  const int r_lo = n0 + rb * 64 + wi * 16 + g;
   const int r_hi = r_lo + 8;
 #pragma unroll
-  for (int i = 0; i < DV / 8; ++i) {
-    const int d = i * 8 + 2 * t;
+  for (int i = 0; i < kDW / 8; ++i) {
+    const int d = c0 + i * 8 + 2 * t;
     if (d >= D) continue;
     if (r_lo < N) {
       store2<T>(o + ((static_cast<size_t>(b) * N + r_lo) * H + h) * D + d,
@@ -370,19 +427,21 @@ __global__ void __launch_bounds__(wg::kBlockThreads<T, kWG>, 1)
                 oacc[4 * i + 2] * inv1, oacc[4 * i + 3] * inv1);
     }
   }
-  if (lse != nullptr && t == 0) {  // natural log of the scaled row sum
+  // natural log of the scaled row sum, from the rows' first column part
+  if (lse != nullptr && t == 0 && c0 == 0) {
     float* lb = lse + (static_cast<size_t>(b) * H + h) * N;
     if (r_lo < N) lb[r_lo] = (m_run[0] * scale_log2 + log2f(l_run[0])) * kLn2;
     if (r_hi < N) lb[r_hi] = (m_run[1] * scale_log2 + log2f(l_run[1])) * kLn2;
   }
 }
 
-template <int DP, int DV, int BKV, typename T, int kWG>
+template <int DP, int DV, int BKV, typename T, int kWG, int kCS = 1>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int N, int M, int H, int D, float scale,
                  cudaStream_t stream) {
   using namespace wg;
-  constexpr int kQRows = 64 * kWG;
+  constexpr int kQRows = 64 * kWG / kCS;
+  constexpr int kS = kStages<DP>;
   CUtensorMap qmap{}, kmap{}, vmap{};
   cudaError_t err = cudaSuccess;
   if constexpr (kIsBf16<T>) {
@@ -405,27 +464,40 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kSF = kStgStages<T, DV, BKV>;
   const size_t smem = 1024 + static_cast<size_t>(DP / 64) * 128 *
-                                 (kQRows + 2 * kStages * BKV) +
+                                 (kQRows + 2 * kS * BKV) +
                       static_cast<size_t>(kSF) * kStgBytes<T, DV, BKV> +
-                      (1 + 4 * kStages + (kIsBf16<T> ? 0 : kSF)) * 8;
-  err = cudaFuncSetAttribute(flash_fwd_kernel_wgmma<DP, DV, BKV, T, kWG>,
+                      (1 + 4 * kS + (kIsBf16<T> ? 0 : kSF)) * 8;
+  err = cudaFuncSetAttribute(flash_fwd_kernel_wgmma<DP, DV, BKV, T, kWG, kCS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kQRows - 1) / kQRows, B * H);
-  flash_fwd_kernel_wgmma<DP, DV, BKV, T, kWG>
-      <<<grid, kBlockThreads<T, kWG>, smem, stream>>>(
+  flash_fwd_kernel_wgmma<DP, DV, BKV, T, kWG, kCS>
+      <<<grid, kBlockThreads<T, kWG, kCS>, smem, stream>>>(
           qmap, kmap, vmap, static_cast<T*>(o), lse, N, M, H, D,
           scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-// D a multiple of 8, at most 160 (the wrapper checks): 40, 80 and 160 are
-// the UNet's head dims, 8 the encoder UNet's /16 attention in training
+// D a multiple of 8, at most 160, or 512 in bf16 (the wrapper checks): 40,
+// 80 and 160 are the UNet's head dims, 8 the encoder UNet's /16 attention,
+// 512 the VAE mid-block's one head where its grid is not a multiple of its
+// window (a 512x704 image)
 template <typename T>
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int N, int M, int H, int D, float scale,
                    cudaStream_t s) {
+  if constexpr (kIsBf16<T>) {
+    if (D == 512) {
+      return launch_wgmma<512, 512, 64, T, 2, 2>(q, k, v, o, lse, B, N, M, H,
+                                                 D, scale, s);
+    }
+  } else {
+    if (D <= 16 && D % 8 == 0 && D > 0) {  // S from hi and lo parts
+      return launch_wgmma<64, 16, 128, T, 3>(q, k, v, o, lse, B, N, M, H, D,
+                                             scale, s);
+    }
+  }
   if (D % 8 || D <= 0 || D > 160) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

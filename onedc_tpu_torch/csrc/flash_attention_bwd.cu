@@ -46,7 +46,15 @@
 // wgmma's descriptors read, D zero-padded there and never in device
 // memory (sm90::convert_staged).
 // f32 is thus rounded to bf16 as it is staged, as the TPU runs f32
-// matmuls at default precision; the products accumulate in f32.
+// matmuls at default precision; the products accumulate in f32. At D <= 16
+// in f32 the scores are the exception: there the gradients are
+// ill-conditioned in q and k (rounded operands moved dQ by 2 % of its
+// largest value), so the producer stages Q and K as bf16 hi and lo parts
+// side by side and S takes three k-steps, hi*hi + lo*hi + hi*lo
+// (sm90::convert_staged_split), as the forward does there, so that P here
+// is the forward's; and the wrapper computes di from the dout that dP
+// reads, rounded to bf16, so that di = rowsum(P * dP) in the kernel's own
+// arithmetic.
 // setmaxnreg gives the consumers the producer's unused registers.
 //
 // Layout: q, dq (B, N, H, D); k, v, dk, dv (B, M, H, D); dout (B, N, H,
@@ -92,6 +100,13 @@ struct Block {
 // pad them to the 16 a k-step reads
 template <int DV>
 constexpr int kStagedCols = (DV + 15) / 16 * 16;
+
+// f32 at D <= 16: S from hi and lo bf16 parts of Q and K (see the top)
+template <typename T, int DV>
+constexpr bool kSplitS = !kIsBf16<T> && DV == 16;
+// k-steps of 16 columns of S at most: three segments of D's when split
+template <typename T, int DV>
+constexpr int kSSteps = (kSplitS<T, DV> ? 3 : 1) * kStagedCols<DV> / 16;
 
 // Shared memory of both kernels, 1024-aligned: two resident tiles of kRows
 // rows, a ring of kStages pairs of streamed tiles of kTile rows (each
@@ -160,6 +175,28 @@ __device__ __forceinline__ void init_barriers(const Smem<DP, DV, kWG>& sm) {
   __syncthreads();
 }
 
+// Rounds a staged pair (the S operand, then dO or V) into its tiles; with
+// kSplitS the S operand as hi and lo parts, its lo in segment lo_seg: 1 for
+// the resident tile (the A operand of S or S^T), 2 for the streamed one.
+template <int DV, typename T>
+__device__ __forceinline__ void stage_pair(unsigned char* const (&dst)[2],
+                                           const T* const (&src)[2], int rows,
+                                           int atom_rows, int D, int lo_seg,
+                                           int tid, int nthreads) {
+  if constexpr (kSplitS<T, DV>) {
+    sm90::convert_staged_split<kStagedCols<DV>>(dst[0], src[0], rows,
+                                                atom_rows, D, lo_seg, tid,
+                                                nthreads);
+    unsigned char* const d1[1] = {dst[1]};
+    const T* const s1[1] = {src[1]};
+    sm90::convert_staged<kStagedCols<DV>, 1>(d1, s1, rows, atom_rows, D, tid,
+                                             nthreads);
+  } else {
+    sm90::convert_staged<kStagedCols<DV>, 2>(dst, src, rows, atom_rows, D,
+                                             tid, nthreads);
+  }
+}
+
 // the producer warp's stores are done: order them before the async proxy
 // (wgmma) and arrive once for the warp
 __device__ __forceinline__ void arrive_stored(uint64_t* bar) {
@@ -215,15 +252,13 @@ __device__ __forceinline__ void produce(const Smem<DP, DV, kWG>& sm,
     if (j < 0) {
       unsigned char* const dst[2] = {sm.res(0) + e * kTile * 128,
                                      sm.res(1) + e * kTile * 128};
-      sm90::convert_staged<kStagedCols<DV>, 2>(dst, src, kTile, sm.kRows, D, pt,
-                                                   kP);
+      stage_pair<DV>(dst, src, kTile, sm.kRows, D, 1, pt, kP);
       if (e == kHalves - 1) arrive_stored(sm.res_full());
     } else {
       const int s = j % sm.kStages;
       sm90::mbar_wait(sm.empty(s), ((j / sm.kStages) & 1) ^ 1);
       unsigned char* const dst[2] = {sm.tile(s, 0), sm.tile(s, 1)};
-      sm90::convert_staged<kStagedCols<DV>, 2>(dst, src, kTile, kTile, D, pt,
-                                                   kP);
+      stage_pair<DV>(dst, src, kTile, kTile, D, 2, pt, kP);
       put(s, fetched);
       arrive_stored(sm.full(s));
     }
@@ -235,12 +270,13 @@ __device__ __forceinline__ void produce(const Smem<DP, DV, kWG>& sm,
 
 // acc (64 x N: 64 resident rows x kTile streamed) = A (the warpgroup's 64
 // rows of a resident tile) times B^T (a streamed tile), over the D columns:
-// both K-major, ksteps (D / 16 rounded up) of 16 columns, 32 bytes into atom
-// kk / 4. Unrolled, and the first k-step only writes acc: a loop would
-// carry acc through moves, and a value given to acc beforehand would be
-// one more write, while products are in flight (ptxas serialises the
-// products it sees so written).
-template <int DV, int kRows>
+// both K-major, ksteps (D / 16 rounded up, or three times that for a split
+// S; at most kMaxSteps) of 16 columns, 32 bytes into atom kk / 4. Unrolled,
+// and the first k-step only writes acc: a loop would carry acc through
+// moves, and a value given to acc beforehand would be one more write, while
+// products are in flight (ptxas serialises the products it sees so
+// written).
+template <int DV, int kRows, int kMaxSteps = kStagedCols<DV> / 16>
 __device__ __forceinline__ void product_ss(float* acc, uint32_t a_addr,
                                            uint32_t b_addr, int ksteps) {
   using namespace sm90;
@@ -248,7 +284,7 @@ __device__ __forceinline__ void product_ss(float* acc, uint32_t a_addr,
   wgmma_ss_n64_first(acc, desc_sw128(a_addr, 16, 1024),
                      desc_sw128(b_addr, 16, 1024));
 #pragma unroll
-  for (int kk = 1; kk < kStagedCols<DV> / 16; ++kk) {
+  for (int kk = 1; kk < kMaxSteps; ++kk) {
     if (kk >= ksteps) break;
     const uint32_t off = (kk & 3) * 32;
     wgmma_ss<kTile>(acc,
@@ -375,6 +411,7 @@ __global__ void __launch_bounds__(Block<kWG>::kThreads, 1)
   const int wgi = warp / 4;
   const int t = threadIdx.x % 4;
   const int ksteps = (D + 15) / 16;
+  const int ssteps = kSplitS<T, DV> ? 3 * ksteps : ksteps;
   const uint32_t kaddr = sm90::smem_addr(sm.res(0)) + wgi * 64 * 128;
   const uint32_t vaddr = sm90::smem_addr(sm.res(1)) + wgi * 64 * 128;
 
@@ -400,7 +437,8 @@ __global__ void __launch_bounds__(Block<kWG>::kThreads, 1)
 
     float p[kTile / 2], dp[kTile / 2];
     sm90::wgmma_fence();
-    product_ss<DV, Blk::kRows>(p, kaddr, qaddr, ksteps);   // S^T = K Q^T
+    product_ss<DV, Blk::kRows, kSSteps<T, DV>>(p, kaddr, qaddr,
+                                               ssteps);  // S^T = K Q^T
     product_ss<DV, Blk::kRows>(dp, vaddr, oaddr, ksteps);  // dP^T = V dO^T
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
@@ -483,6 +521,7 @@ __global__ void __launch_bounds__(Block<kWG>::kThreads, 1)
   const int lane = threadIdx.x % 32;
   const int t = lane & 3;
   const int ksteps = (D + 15) / 16;
+  const int ssteps = kSplitS<T, DV> ? 3 * ksteps : ksteps;
   const uint32_t qaddr = sm90::smem_addr(sm.res(0)) + wgi * 64 * 128;
   const uint32_t oaddr = sm90::smem_addr(sm.res(1)) + wgi * 64 * 128;
   float l2[2], dd[2];
@@ -509,7 +548,8 @@ __global__ void __launch_bounds__(Block<kWG>::kThreads, 1)
 
     float p[kTile / 2], dp[kTile / 2];
     sm90::wgmma_fence();
-    product_ss<DV, Blk::kRows>(p, qaddr, kaddr, ksteps);   // S = Q K^T
+    product_ss<DV, Blk::kRows, kSSteps<T, DV>>(p, qaddr, kaddr,
+                                               ssteps);  // S = Q K^T
     product_ss<DV, Blk::kRows>(dp, oaddr, vaddr, ksteps);  // dP = dO V^T
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();

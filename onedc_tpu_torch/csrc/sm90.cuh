@@ -580,5 +580,48 @@ __device__ __forceinline__ void convert_staged(
   }
 }
 
+// The S operand of the f32 backward at D <= 16, where the gradients are
+// ill-conditioned in q and k (a product of rounded operands moved dQ by 1-2 %
+// of its largest value on an H100): `rows` rows of D columns of f32, staged
+// as convert_staged stages them, into three segments of C columns, each the
+// row rounded to bf16 (hi) but segment lo_seg, which holds what that
+// rounding lost, rounded again (lo): [hi | lo | hi] (lo_seg 1) or [hi | hi |
+// lo] (lo_seg 2). A product over the 3C columns of one of each is hi * hi +
+// lo * hi + hi * lo, the f32 product but for lo * lo (2^-16 relative);
+// segment 0 alone is the tile that convert_staged writes.
+template <int C>
+__device__ __forceinline__ void convert_staged_split(
+    unsigned char* dst, const float* src, int rows, int atom_rows, int D,
+    int lo_seg, int tid, int nthreads) {
+  static_assert(C % 8 == 0 && 3 * C <= 64, "three segments in one atom");
+  constexpr int kChunks = 3 * C / 8;  // per row
+#pragma unroll 4
+  for (int u = tid; u < rows * kChunks; u += nthreads) {
+    const int r = u / kChunks;
+    const int c = u - r * kChunks;
+    const int seg = c / (C / 8);
+    const int cs = c - seg * (C / 8);  // the chunk of the source row
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (cs * 8 < D) {
+      Chunk8<float> ch;
+      const uint4* p = reinterpret_cast<const uint4*>(src + r * D + cs * 8);
+      ch.v[0] = p[0];
+      ch.v[1] = p[1];
+      if (seg == lo_seg) {
+        uint32_t* w = reinterpret_cast<uint32_t*>(ch.v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float x = __uint_as_float(w[e]);
+          w[e] = __float_as_uint(
+              x - __bfloat162float(__float2bfloat16_rn(x)));
+        }
+      }
+      val = bf16x8(ch);
+    }
+    *reinterpret_cast<uint4*>(dst + (c >> 3) * atom_rows * 128 + r * 128 +
+                              (((c & 7) ^ (r & 7)) << 4)) = val;
+  }
+}
+
 }  // namespace sm90
 }  // namespace onedc

@@ -1,7 +1,7 @@
 """Four-part (quadtree) spatial-channel prior: masks, the training /
 eval forward and the staged decode helpers.
 
-JAX counterpart: ``onedc_tpu/entropy/fourpart.py`` (:32-57, :68-126,
+JAX counterpart: ``onedc_tpu/entropy/fourpart.py`` (:32-57, :68-155,
 :165-175). The latent y is coded in 4 interleaved steps; each step covers
 one (checkerboard phase x channel quarter) combination. Arrays are NHWC, as
 in the JAX package, because they cross the host boundary of the decode
@@ -82,7 +82,9 @@ def forward_four_part_prior(y, common_params,
                             reduction: Optional[Callable] = None, *,
                             training: bool = True, force_zero_thres=None):
     """The training / eval four-step masked coding of y (NHWC; the JAX
-    package's ``write=False`` branch). ``prior_steps`` are three callables
+    package's ``write=False`` branch: the port builds an encode's write
+    plan from the decoder's own programs, ``models/codec.py``
+    ``LatentCodec.compress``). ``prior_steps`` are three callables
     (adaptor_i then the spatial prior) on NHWC params; the first step uses
     the hyperprior params directly. Returns (y_res, y_q, y_hat,
     scales_hat), each summed over the 4 steps."""
@@ -103,3 +105,23 @@ def forward_four_part_prior(y, common_params,
         y_hat_so_far = y_hat_so_far + r[2]
     y_res, y_q, _, scales_hat = (sum(parts) for parts in zip(*results))
     return y_res, y_q, y_hat_so_far, scales_hat
+
+
+def forward_four_part_prior_recon_with_z(y, common_params,
+                                         prior_steps: Sequence[Callable],
+                                         reduction: Optional[Callable] = None):
+    """The z-only model's prior: y_hat is the predicted means, no residual
+    is coded (``onedc_tpu/entropy/fourpart.py:129-155``). Only y's shape,
+    dtype and device are read."""
+    scales, means = separate_prior(common_params)
+    if reduction is not None:
+        common_params = reduction(common_params)
+    _, h, w, c = y.shape
+    masks = four_part_masks(h, w, c, y.dtype, y.device)
+    y_hat_so_far = torch.zeros_like(y)
+    for step in range(4):
+        if step > 0:
+            params = torch.cat([y_hat_so_far, common_params], dim=-1)
+            scales, means = separate_prior(prior_steps[step - 1](params))
+        y_hat_so_far = y_hat_so_far + means * masks[step]
+    return y_hat_so_far

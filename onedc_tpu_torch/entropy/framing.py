@@ -1,6 +1,8 @@
 """Bitstream container framing, byte-compatible with the reference.
 
-JAX counterpart: ``onedc_tpu/entropy/framing.py``. Container layout:
+JAX counterpart: ``onedc_tpu/entropy/framing.py`` (``encode_i``,
+``decode_i``, and the file helpers ``filesize`` :35, ``write_to_file``
+:80, ``read_from_file`` :85). Container layout:
 big-endian ``>2I`` (height, width) + ``>1I`` len(y-stream) + ``>1I``
 caption length, then the raw y bytes, z bytes and caption bytes. The
 z-stream length is not stored: decode derives it from the padded image
@@ -11,6 +13,7 @@ from __future__ import annotations
 
 import math
 import struct
+from pathlib import Path
 
 
 class CorruptBitstreamError(ValueError):
@@ -23,6 +26,23 @@ def get_padding_size(height: int, width: int, p: int = 64):
     new_h = (height + p - 1) // p * p
     new_w = (width + p - 1) // p * p
     return 0, new_w - width, 0, new_h - height
+
+
+def filesize(filepath) -> int:
+    path = Path(filepath)
+    if not path.is_file():
+        raise ValueError(f'Invalid file "{filepath}".')
+    return path.stat().st_size
+
+
+def write_to_file(value: bytes, file_path) -> None:
+    with Path(file_path).open("wb") as f:
+        f.write(value)
+
+
+def read_from_file(file_path) -> bytes:
+    with Path(file_path).open("rb") as f:
+        return f.read()
 
 
 def encode_i(pic_height: int, pic_width: int, bit_stream_y: bytes,

@@ -1,14 +1,24 @@
 """Latent codec: the analysis transform g_a, the hyper encoder and decoder,
-the rate-distortion training forward, the four-part prior programs of the
-decode and the synthesis transform g_s.
+the rate-distortion training forward, the device half of encode, the
+four-part prior programs of the decode and the synthesis transform g_s.
 
-JAX counterpart: ``onedc_tpu/models/codec.py`` (:53-200, :262-311,
-:356-405). The per-step programs ``decompress_begin`` /
+JAX counterpart: ``onedc_tpu/models/codec.py`` (:53-200, :262-349,
+:356-415). The per-step programs ``decompress_begin`` /
 ``decompress_update`` / ``decompress_finish`` keep the JAX package's NHWC
 arrays at their boundary (the host rANS loop reads the CDF indexes and
 writes the symbols in that layout); the nets inside compute in NCHW. The
 training forward runs its four-part prior in NHWC too, so that its noise
 and its masks have the JAX layout.
+
+``compress`` builds its write plan from the decoder's own programs, one
+image at a time (``decompress_begin``, then at each step the symbols from
+y and the state's means, fed to ``decompress_update``): the decoder runs
+the prior nets on each image's (1, ...) tensors, and cuDNN picks its
+algorithm by shape, so only the same programs on the same shapes give the
+writer the indexes the reader will compute, bit for bit. Under the masks
+this is the JAX package's arithmetic (``forward_four_part_prior(...,
+write=True)``): the same two numbers are added, and ``combine_quarters``
+of a masked tensor adds three zeros.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from ..entropy.fourpart import (
     combine_quarters,
     decompress_step_update,
     forward_four_part_prior,
+    forward_four_part_prior_recon_with_z,
     four_part_masks,
     separate_prior,
 )
@@ -204,15 +215,22 @@ class SpatialPrior(nn.Module):
         return self.block2(self.block1(self.block0(x)))
 
 
+# the entropy coder clamps symbols to this magnitude before it codes them
+# as int16 (``entropy/coder.py``)
+SYMBOL_LIMIT = 30000
+
+
 class LatentCodec(nn.Module):
     """The IntraNoAR-equivalent latent codec: ``forward`` is the
-    rate-distortion training / eval forward, the ``decompress_*`` programs
-    the decode.
+    rate-distortion training / eval forward, ``compress`` the device half
+    of encode, the ``decompress_*`` programs the decode.
 
     ``compute_dtype`` is the dtype the nets run in (bf16 for serving); the
-    FSQ codes and the decoded symbols are cast to it, as in the JAX
-    package (``models/codec.py:217-229``), and the CDF indexes are always
-    computed in f32 (``build_indexes``).
+    image, the cond latent, the FSQ codes and the decoded symbols are cast
+    to it, as in the JAX package (``models/codec.py:217-229``), and the CDF
+    indexes are always computed in f32 (``build_indexes``). ``z_only`` is
+    the extreme-low-bpp model: no y stream, y_hat is the prior's predicted
+    means.
     """
 
     def __init__(self, cond_ch: int = 4, ctrl_ch: int = 320,
@@ -221,11 +239,13 @@ class LatentCodec(nn.Module):
                  unet_ch_config: Sequence[int] = (512, 768, 768),
                  z_fsq_levels: Sequence[int] = (4, 4, 4, 4, 4, 4, 4),
                  force_zero_thres: Optional[float] = None,
+                 z_only: bool = False,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         n = bottleneck_ch
         sem_ch = unet_ch_config[-1]
         self.force_zero_thres = force_zero_thres
+        self.z_only = z_only
         self.compute_dtype = compute_dtype
         self.ds = 64        # padding granularity
         self.z_vq = FSQ(z_fsq_levels)
@@ -248,6 +268,9 @@ class LatentCodec(nn.Module):
         adaptor = getattr(self, f"y_spatial_prior_adaptor_{i + 1}")
         return lambda p: nhwc(self.y_spatial_prior(adaptor(nchw(p))))
 
+    def _reduction(self, p):
+        return nhwc(self.y_spatial_prior_reduction(nchw(p)))
+
     def forward(self, x, cond, training: bool = False,
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None
@@ -269,11 +292,16 @@ class LatentCodec(nn.Module):
         z_hat, z_indices = self.z_vq(nhwc(z))
         params, z_semantic = self.hyper_dec(nchw(z_hat))
         params = self.y_prior_fusion(params)
-        y_res, y_q, y_hat, scales_hat = forward_four_part_prior(
-            nhwc(y), nhwc(params), [self._prior_step(i) for i in range(3)],
-            reduction=lambda p: nhwc(self.y_spatial_prior_reduction(
-                nchw(p))),
-            training=training, force_zero_thres=self.force_zero_thres)
+        steps = [self._prior_step(i) for i in range(3)]
+        if self.z_only:
+            y_hat = forward_four_part_prior_recon_with_z(
+                nhwc(y), nhwc(params), steps, reduction=self._reduction)
+            y_res = y_q = torch.zeros_like(y_hat)
+            scales_hat = torch.ones_like(y_hat)
+        else:
+            y_res, y_q, y_hat, scales_hat = forward_four_part_prior(
+                nhwc(y), nhwc(params), steps, reduction=self._reduction,
+                training=training, force_zero_thres=self.force_zero_thres)
         y_semantic = self.semantic_adaptor(z_semantic)
         x_hat = self.dec(nchw(y_hat), y_semantic)
 
@@ -299,6 +327,58 @@ class LatentCodec(nn.Module):
             "z_semantic": z_semantic,
             "z_indices": z_indices,
         }
+
+    @torch.no_grad()
+    def compress(self, x, cond) -> Dict[str, object]:
+        """The device half of encode (``onedc_tpu/models/codec.py:
+        315-349``): x image (B, 3, H, W), padded to a multiple of 64; cond
+        the VAE latent (B, cond_ch, H/8, W/8). Returns the JAX keys:
+        "z_indices" (B, H/64, W/64) int32 and, unless ``z_only``, the write
+        plan: "y_q_w" and "indexes_w", one (B, H/16, W/16, C/4) tensor per
+        step (the symbols as int16, clamped to +-SYMBOL_LIMIT as the coder
+        clamps them; the CDF indexes, uint8, or int16 with -1 marking a
+        skipped symbol under ``force_zero_thres``), and "y_hat" (B, H/16,
+        W/16, C), the latent the decoder will rebuild. The encoders may run
+        batched; the plan runs one image at a time (see the module
+        docstring)."""
+        x = x.to(self.compute_dtype)
+        cond = cond.to(self.compute_dtype)
+        y, sem = self.enc(x, cond)
+        z = self.hyper_enc(y, sem)
+        _, z_indices = self.z_vq(nhwc(z))
+        if self.z_only:
+            return {"z_indices": z_indices}
+        y = nhwc(y)
+        plans = [self._write_plan(y[i:i + 1], z_indices[i:i + 1])
+                 for i in range(y.shape[0])]
+        return {
+            "y_q_w": tuple(torch.cat([p[0][s] for p in plans])
+                           for s in range(4)),
+            "indexes_w": tuple(torch.cat([p[1][s] for p in plans])
+                               for s in range(4)),
+            "y_hat": torch.cat([p[2] for p in plans]),
+            "z_indices": z_indices,
+        }
+
+    def _write_plan(self, y, z_indices):
+        """One image's plan through the decoder's programs: y (1, h, w, C)
+        NHWC -> ([symbols] * 4, [indexes] * 4, y_hat)."""
+        st = self.decompress_begin(z_indices)
+        _, h, w, c = y.shape
+        masks = four_part_masks(h, w, c, y.dtype, y.device)
+        symbols, indexes = [], []
+        for step in range(4):
+            mask = masks[step]
+            sym = combine_quarters(torch.round((y - st["means"] * mask)
+                                               * mask))
+            sym = sym.clamp(-SYMBOL_LIMIT, SYMBOL_LIMIT).to(torch.int16)
+            if self.force_zero_thres is not None:
+                sym = torch.where(st["indexes_r"] < 0, 0, sym)
+            symbols.append(sym)
+            indexes.append(st["indexes_r"])
+            st.update(self.decompress_update(step, sym, st["means"],
+                                             st["y_hat"], st["common"]))
+        return symbols, indexes, st["y_hat"]
 
     def _rans_indexes(self, scales_r: torch.Tensor) -> torch.Tensor:
         """CDF indexes in the smallest dtype that fits: uint8 (0..255), or
@@ -348,3 +428,17 @@ class LatentCodec(nn.Module):
         """NHWC y_hat, z_semantic -> NCHW (x_hat control, y_semantic)."""
         y_semantic = self.semantic_adaptor(nchw(z_semantic))
         return self.dec(nchw(y_hat), y_semantic), y_semantic
+
+    def decompress_z_only(self, z_indices):
+        """The z-only decode (``onedc_tpu/models/codec.py:408-415``): z
+        indices (B, h, w) -> NCHW (x_hat control, y_semantic), y_hat being
+        the prior's predicted means."""
+        z_hat = nchw(self.z_vq.indices_to_codes(z_indices)).to(
+            self.compute_dtype)
+        params, z_semantic = self.hyper_dec(z_hat)
+        params = nhwc(self.y_prior_fusion(params))
+        y_hat = forward_four_part_prior_recon_with_z(
+            separate_prior(params)[0], params,
+            [self._prior_step(i) for i in range(3)],
+            reduction=self._reduction)
+        return self.decompress_finish(y_hat, nhwc(z_semantic))

@@ -1,17 +1,25 @@
 """OneDC composite model: latent codec + one-step SD UNet + VAE, its
-stage-I training forward, and the bitstream decode runtime.
+stage-I training forward, and the bitstream runtime (encode and decode).
 
 JAX counterpart: ``onedc_tpu/models/onedc.py`` (:41-224 ``OneDC``, with the
-training forward :156-184, :226-365 ``OneDCRuntime.decode``, :467-531
-``decode_batch`` and the non-pipelined ``_decode_bucket``). As in the JAX
-package, x0 is recovered in f32 and the VAE decodes in the working dtype.
+training forward :156-184 and the device halves :188-223; :226-367
+``OneDCRuntime.encode`` / ``decode``, :385-465 ``encode_batch`` /
+``encode_many``, :467-531 ``decode_batch`` and the non-pipelined
+``_decode_bucket``). As in the JAX package, x0 is recovered in f32 and the
+VAE decodes in the working dtype; encode uses the VAE posterior mean.
+``z_only=True`` is the extreme-low-bpp model (``configs/
+inference_exlow.yaml``): its container carries the z indices only.
 
 ``OneDCRuntime`` runs on the card unless the caller names another device:
-with no device and no GPU it raises, it does not drop to the CPU.
+with no device and no GPU it raises, it does not drop to the CPU. Its
+device arithmetic runs under ``utils.numerics.pinned_numerics``: every
+encode entry point computes its plan in ``write_plan`` and every decode
+entry point its images in ``decode_padded``, the two pinned methods.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -19,12 +27,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..entropy.framing import decode_i
+from ..entropy.framing import get_padding_size
 from ..nn.diffusion import get_x0_from_noise, make_alphas_cumprod
 from ..nn.unet_sd import SD15CodecUNet
 from ..nn.vae import AutoencoderKL, hwio_conv_weights
-from .codec import LatentCodec, nhwc
-from .runtime import CodecRuntime
+from ..utils.numerics import pinned
+from .codec import LatentCodec, nchw, nhwc
+from .runtime import WRITE_KEYS, CodecRuntime, host_arrays
 
 
 class OneDC(nn.Module):
@@ -33,6 +42,7 @@ class OneDC(nn.Module):
     def __init__(self, internal_ch: int = 512, bottleneck_ch: int = 128,
                  unet_ch_config: Sequence[int] = (512, 768, 768),
                  z_fsq_levels: Sequence[int] = (4, 4, 4, 4, 4, 4, 4),
+                 z_only: bool = False,
                  force_zero_thres: Optional[float] = None,
                  ctrl_ch: int = 320, vae_ch: int = 4,
                  sd_block_channels: Sequence[int] = (320, 640, 1280, 1280),
@@ -56,7 +66,8 @@ class OneDC(nn.Module):
         self.codec = LatentCodec(
             cond_ch=vae_ch, ctrl_ch=ctrl_ch, internal_ch=internal_ch,
             bottleneck_ch=bottleneck_ch, unet_ch_config=unet_ch_config,
-            z_fsq_levels=z_fsq_levels, force_zero_thres=force_zero_thres)
+            z_fsq_levels=z_fsq_levels, force_zero_thres=force_zero_thres,
+            z_only=z_only)
         self.alphas_cumprod = make_alphas_cumprod(num_train_timesteps)
 
     def vae_encode_image(self, image):
@@ -102,6 +113,19 @@ class OneDC(nn.Module):
         x0 = self._one_step_x0(x_hat, y_semantic)
         return self.vae_decode_image(x0.to(x_hat.dtype)), x0
 
+    def encode_device(self, image_padded):
+        """The device half of encode: image (B, 3, H, W) padded to a
+        multiple of 64 -> the codec's write plan (``LatentCodec.
+        compress``), cond = the VAE posterior mean."""
+        return self.codec.compress(image_padded,
+                                   self.vae_encode_image(image_padded))
+
+    def decode_device_z_only(self, z_indices):
+        """z indices (B, h, w) -> image NCHW, through the z-only codec
+        decode, the UNet and the VAE."""
+        x_hat, y_semantic = self.codec.decompress_z_only(z_indices)
+        return self.generate(x_hat, y_semantic)[0]
+
     # staged halves of decode_device (the JAX package's pipelined serving
     # path splits the same way; a traced decode times the stages)
 
@@ -130,7 +154,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 class OneDCRuntime:
-    """Bitstream decode: ``decode(stream)`` -> (1, H, W, 3) f32 NHWC.
+    """The bitstream runtime: ``encode(image)`` -> (stream, bpp dict);
+    ``decode(stream)`` -> (1, H, W, 3) f32 NHWC; batched ``encode_batch``,
+    ``encode_many`` and ``decode_batch``. Images are NHWC in [-1, 1].
 
     ``state``: a state dict loaded with ``strict=True`` (for example from
     ``utils.convert.state_dict_from_jax``), or None to keep the model's
@@ -153,29 +179,152 @@ class OneDCRuntime:
         model.codec.compute_dtype = self.dtype
         self._codec_rt = CodecRuntime(model.codec, self.device)
         self.ds = model.codec.ds
+        self.z_only = model.codec.z_only
+
+    # -- encode -------------------------------------------------------------
+
+    @staticmethod
+    def _pad_replicate(image: torch.Tensor, pad) -> torch.Tensor:
+        """NHWC image, replicate-padded by (left, right, top, bottom)."""
+        pl, pr, pt, pb = pad
+        _, h, w, _ = image.shape
+        rows = torch.arange(-pt, h + pb, device=image.device).clamp(0, h - 1)
+        cols = torch.arange(-pl, w + pr, device=image.device).clamp(0, w - 1)
+        return image[:, rows][:, :, cols]
+
+    def pad(self, images) -> torch.Tensor:
+        """(B, H, W, 3) images in [-1, 1], torch or numpy -> (B, 3, H', W')
+        on the runtime's device, in its dtype, replicate-padded right and
+        bottom to multiples of 64 (cast before padding, as in the JAX
+        package)."""
+        images = torch.as_tensor(images, device=self.device).to(self.dtype)
+        _, h, w, _ = images.shape
+        return nchw(self._pad_replicate(images,
+                                        get_padding_size(h, w, self.ds)))
+
+    @pinned
+    @torch.no_grad()
+    def write_plan(self, images) -> dict:
+        """The device half of encode for a batch of same-size images (B,
+        H, W, 3): ``OneDC.encode_device`` of the padded batch."""
+        return self.model.encode_device(self.pad(images))
+
+    def _fetch(self, out: dict):
+        """Start the copy of a plan's host keys to the host: (host tensors
+        by key, the event that marks the copies done, or None on the
+        CPU). On the card the copies go to pinned memory without blocking
+        the host."""
+        keys = ("z_indices",) if self.z_only else WRITE_KEYS
+        if self.device.type != "cuda":
+            return {k: out[k] for k in keys}, None
+
+        def copy(t):
+            if isinstance(t, tuple):
+                return tuple(copy(a) for a in t)
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True
+                               ).copy_(t, non_blocking=True)
+        host = {k: copy(out[k]) for k in keys}
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _write_chunk_streams(self, fetched, sel, results, w: int, h: int,
+                             caps, fp=None):
+        """The host half of a batched encode: wait for the chunk's copies,
+        then write one container per row; row j goes to results[sel[j]]."""
+        host, event = fetched
+        if event is not None:
+            event.synchronize()
+        host = {k: host_arrays(v) for k, v in host.items()}
+        rt = self._codec_rt
+        for j, i in enumerate(sel):
+            if self.z_only:
+                results[i] = rt.encode_z_only(host["z_indices"][j:j + 1], w,
+                                              h, fp, caps[j])
+                continue
+            per = {k: tuple(a[j:j + 1] for a in v) if isinstance(v, tuple)
+                   else v[j:j + 1] for k, v in host.items()}
+            results[i] = rt.write_streams(per, w, h, fp, caps[j])
+        return results
+
+    @torch.no_grad()
+    def encode(self, image, fp=None, caption: str = ""
+               ) -> Tuple[bytes, Dict[str, float]]:
+        """image (1, H, W, 3) in [-1, 1], torch or numpy -> (container
+        bytes, bpp dict); the container is also written to ``fp`` if
+        given. ``caption`` rides the container."""
+        _, h, w, _ = image.shape
+        out = self.write_plan(image)
+        return self._write_chunk_streams(self._fetch(out), [0], [None], w,
+                                         h, [caption], fp)[0]
+
+    @torch.no_grad()
+    def encode_batch(self, images) -> List[Tuple[bytes, Dict[str, float]]]:
+        """N same-size images (N, H, W, 3) as one device batch, then one
+        container per image: [(stream, bpp dict)] in input order."""
+        n, h, w, _ = images.shape
+        out = self.write_plan(images)
+        return self._write_chunk_streams(self._fetch(out), list(range(n)),
+                                         [None] * n, w, h, [""] * n)
+
+    @torch.no_grad()
+    def encode_many(self, images, captions=None,
+                    chunk: Optional[int] = None
+                    ) -> List[Tuple[bytes, Dict[str, float]]]:
+        """A list of (1, H, W, 3) images, bucketed by size and encoded in
+        device chunks of ``chunk`` (default ``ONEDC_PIPELINE_CHUNK``, 8):
+        every chunk's device half and its copy to the host are queued
+        before any host work, then each chunk's containers are written
+        once its copies are done, while the card encodes later chunks.
+        [(stream, bpp dict)] in input order."""
+        chunk = chunk or int(os.environ.get("ONEDC_PIPELINE_CHUNK", "8"))
+        caps = list(captions) if captions is not None else [""] * len(images)
+        if len(caps) != len(images):
+            raise ValueError(f"{len(caps)} captions for {len(images)} images")
+        buckets: Dict[Tuple[int, int], List[int]] = {}
+        for i, im in enumerate(images):
+            buckets.setdefault(tuple(im.shape[1:3]), []).append(i)
+        results: List = [None] * len(images)
+        queued = []
+        for (h, w), idxs in buckets.items():
+            for c0 in range(0, len(idxs), chunk):
+                sel = idxs[c0:c0 + chunk]
+                batch = torch.cat([torch.as_tensor(images[i]) for i in sel])
+                queued.append((sel, h, w, self._fetch(
+                    self.write_plan(batch))))
+        for sel, h, w, fetched in queued:
+            self._write_chunk_streams(fetched, sel, results, w, h,
+                                      [caps[i] for i in sel])
+        return results
+
+    # -- decode -------------------------------------------------------------
 
     def parse(self, stream: bytes) -> dict:
-        return decode_i(stream, self._codec_rt.fsq.index_bits, self.ds)
+        return self._codec_rt.parse(stream)
 
     def z_indices(self, dec: dict) -> np.ndarray:
-        zh, zw = dec["pad_height"] // self.ds, dec["pad_width"] // self.ds
-        return self._codec_rt.fsq.unpack_indices(
-            dec["bit_stream_z"], zh * zw).reshape(1, zh, zw)
+        return self._codec_rt.z_indices(dec)
 
+    @pinned
     @torch.no_grad()
     def decode_padded(self, decs: List[dict],
                       trace: Optional[dict] = None) -> torch.Tensor:
         """One same-padded-size bucket -> padded images (B, H, W, 3) f32:
         one four-part loop over the bucket, then one batched
-        codec-finish + UNet + VAE pass. ``trace``, if given, receives the
-        host (indexes, symbols) of each step under "steps", the decoded
-        latent under "y_hat", and the host ms of each stage under
-        "stage_ms": "begin" (z unpack, codec begin), "updates_with_rans"
-        (4 x host rANS and update), "finish_unet_x0" and "vae". A traced
-        decode waits for the device at the end of each stage."""
-        rt = self._codec_rt
+        codec-finish + UNet + VAE pass (z-only: one batched z-only decode).
+        ``trace``, if given (lambda model), receives the host (indexes,
+        symbols) of each step under "steps", the decoded latent under
+        "y_hat", and the host ms of each stage under "stage_ms": "begin"
+        (z unpack, codec begin), "updates_with_rans" (4 x host rANS and
+        update), "finish_unet_x0" and "vae". A traced decode waits for the
+        device at the end of each stage."""
         stage_done = self._stage_clock(trace)
         z = np.concatenate([self.z_indices(d) for d in decs])
+        if self.z_only:
+            image = self.model.decode_device_z_only(
+                torch.from_numpy(z).to(self.device))
+            return nhwc(image).float()
+        rt = self._codec_rt
         coders = rt.make_stream_coders([d["bit_stream_y"] for d in decs])
         steps = trace.setdefault("steps", []) if trace is not None else None
         y_hat, z_semantic = rt.run_four_part_decode(z, coders, steps,
@@ -220,16 +369,21 @@ class OneDCRuntime:
         return self._unpad(self.decode_padded([dec], trace), dec)
 
     def decode_batch(self, streams: Sequence[bytes]) -> List[torch.Tensor]:
-        """Decode N streams, one batch per padded size (bucket); results in
-        input order, each (1, H, W, 3) f32."""
+        """Decode N streams, one batch per padded size (bucket; z-only: in
+        chunks of ``ONEDC_PIPELINE_CHUNK``, 8, as in the JAX package);
+        results in input order, each (1, H, W, 3) f32."""
         decs = [self.parse(s) for s in streams]
         buckets: Dict[Tuple[int, int], List[int]] = {}
         for i, d in enumerate(decs):
             buckets.setdefault((d["pad_height"], d["pad_width"]),
                                []).append(i)
+        chunk = (int(os.environ.get("ONEDC_PIPELINE_CHUNK", "8"))
+                 if self.z_only else len(decs))
         out: List[Optional[torch.Tensor]] = [None] * len(decs)
         for idxs in buckets.values():
-            preds = self.decode_padded([decs[i] for i in idxs])
-            for row, i in enumerate(idxs):
-                out[i] = self._unpad(preds[row:row + 1], decs[i])
+            for c0 in range(0, len(idxs), chunk):
+                sel = idxs[c0:c0 + chunk]
+                preds = self.decode_padded([decs[i] for i in sel])
+                for row, i in enumerate(sel):
+                    out[i] = self._unpad(preds[row:row + 1], decs[i])
         return out

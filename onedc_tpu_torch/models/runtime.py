@@ -1,9 +1,11 @@
-"""Host side of the codec decode: the four-part rANS <-> prior-net loop.
+"""Host side of the codec: the encode's rANS write and framing, and the
+decode's four-part rANS <-> prior-net loop.
 
-JAX counterpart: ``onedc_tpu/models/runtime.py`` (:130-195) and
-``onedc_tpu/serving/pipeline.py:58 _narrow_symbols``. The four-part prior
-forces 4 host <-> device round trips per decode: the rANS decode of part i
-needs the CDF indexes that the prior net computes from parts < i.
+JAX counterpart: ``onedc_tpu/models/runtime.py`` (:75-126 encode,
+:130-221 decode) and ``onedc_tpu/serving/pipeline.py:58
+_narrow_symbols``. The four-part prior forces 4 host <-> device round
+trips per decode: the rANS decode of part i needs the CDF indexes that the
+prior net computes from parts < i.
 
 Batch invariance: the CDF index is a truncated log-ratio of a bf16 scale,
 so a last-ulp difference in the prior nets can flip an index and desync
@@ -16,14 +18,27 @@ native call per step, and everything after the loop runs batched.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..entropy.coder import EntropyCoder
+from ..entropy.framing import decode_i, read_from_file
 from ..entropy.gaussian import GaussianConditionalCoder
+from ..serving.encoder import frame_container, write_container
 from .codec import LatentCodec
+
+
+# the keys of a write plan that the host codes
+WRITE_KEYS = ("y_q_w", "indexes_w", "z_indices")
+
+
+def host_arrays(value):
+    """A device tensor, or a tuple of them, -> numpy on the host."""
+    if isinstance(value, tuple):
+        return tuple(host_arrays(v) for v in value)
+    return value.cpu().numpy()
 
 
 def narrow_symbols(parts: np.ndarray) -> np.ndarray:
@@ -46,6 +61,65 @@ class CodecRuntime:
         self.gaussian_coder.update(self.entropy_coder, force=True)
         self.fsq = codec.z_vq
         self.ds = codec.ds
+
+    def encode(self, x, cond, pic_width: int, pic_height: int, fp=None,
+               caption: str = "") -> Tuple[bytes, Dict[str, float]]:
+        """x (1, 3, H, W) padded to a multiple of 64, cond (1, cond_ch,
+        H/8, W/8) -> (container bytes, bpp dict)."""
+        out = self.codec.compress(x, cond)
+        if self.codec.z_only:
+            return self.encode_z_only(out["z_indices"].cpu().numpy(),
+                                      pic_width, pic_height, fp, caption)
+        return self.write_streams(
+            {k: host_arrays(out[k]) for k in WRITE_KEYS}, pic_width,
+            pic_height, fp, caption)
+
+    def write_streams(self, out: Dict, pic_width: int, pic_height: int,
+                      fp=None, caption: str = ""
+                      ) -> Tuple[bytes, Dict[str, float]]:
+        """The host half of encode: a one-image write plan of host arrays
+        -> (container bytes, bpp dict)."""
+        return write_container(self.entropy_coder, self.gaussian_coder,
+                               self.fsq, out, pic_width, pic_height, fp=fp,
+                               caption=caption)
+
+    def encode_z_only(self, z_indices: np.ndarray, pic_width: int,
+                      pic_height: int, fp=None, caption: str = ""
+                      ) -> Tuple[bytes, Dict[str, float]]:
+        """The z-only container: an empty y stream, the packed z indices
+        (14 bits per 64x64 block) and the caption."""
+        return frame_container(b"", self.fsq.pack_indices(z_indices),
+                               pic_width, pic_height, fp, caption)
+
+    @torch.no_grad()
+    def decode(self, fp=None, stream: Optional[bytes] = None):
+        """The codec-only decode: a container -> (x_hat control tensor
+        (1, ctrl_ch, H/8, W/8), y_semantic, (height, width), (padded
+        height, padded width), pad tuple)."""
+        if fp is None and stream is None:
+            raise ValueError("decode needs fp or stream")
+        dec = self.parse(stream if stream is not None else read_from_file(fp))
+        z_indices = self.z_indices(dec)
+        if self.codec.z_only:
+            x_hat, y_semantic = self.codec.decompress_z_only(
+                torch.from_numpy(z_indices).to(self.device))
+        else:
+            coders = self.make_stream_coders([dec["bit_stream_y"]])
+            y_hat, z_semantic = self.run_four_part_decode(z_indices, coders)
+            x_hat, y_semantic = self.codec.decompress_finish(y_hat,
+                                                             z_semantic)
+        return (x_hat, y_semantic, (dec["height"], dec["width"]),
+                (dec["pad_height"], dec["pad_width"]), dec["pad_tuple"])
+
+    def parse(self, stream: bytes) -> dict:
+        """A container's fields (``entropy.framing.decode_i``)."""
+        return decode_i(stream, self.fsq.index_bits, self.ds)
+
+    def z_indices(self, dec: dict) -> np.ndarray:
+        """A parsed container's z indices, (1, H/64, W/64)."""
+        zh, zw = dec["pad_height"] // self.ds, dec["pad_width"] // self.ds
+        return self.fsq.unpack_indices(
+            dec["bit_stream_z"], zh * zw).reshape(1, zh, zw)
 
     def make_stream_coders(self, y_streams: Sequence[bytes]):
         """One GaussianConditionalCoder per y bitstream, sharing this

@@ -5,7 +5,10 @@ JAX counterpart: ``onedc_tpu/nn/attention.py``. The routing rule is the
 JAX package's ``can_flash`` (:78): both sequences at least 2048 tokens and
 multiples of 128. The JAX package sends those to the Pallas TPU kernel and
 everything else to XLA; here they go to K1 (``ops/flash_attention.py``)
-when the tensors lie on the card, and to the plain version otherwise.
+when the tensors lie on the card, and to the plain version otherwise. The
+widest head the rule sees is the VAE mid-block's single 512-wide head,
+which reaches it when the /8 grid is not a multiple of the 16-pixel window
+(a 512x704 image: 64x88, 5632 tokens); K1 takes it in bf16.
 """
 
 from __future__ import annotations

@@ -12,14 +12,19 @@ exponentials forward, ~10*N*M*H*D FLOPs backward, on O(N*H*D) bytes at the
 UNet's shapes). Both keep the probabilities in registers, so the N x M
 scores never reach device memory, and pad D inside shared memory, not in
 HBM. All of them run on ``wgmma`` (bf16 operands, f32 accumulation) with
-warp-specialised producers and mbarrier rings: the bf16 forward (the
-decode path) loads by TMA; the f32 forward (training, with the row
-log-sum-exp) and the backward (f32 on the training path, or bf16) load
-rows with ordinary 16-byte loads and round f32 to bf16 as they stage it.
+warp-specialised producers and mbarrier rings, and load by TMA: the bf16
+forward (the decode path) straight into the swizzled tiles; the f32
+forward (training, with the row log-sum-exp) and the backward (f32 on the
+training path, or bf16) land rows densely in a staging ring that producer
+warps round to bf16 into the swizzled tiles (``sm90::convert_staged``).
 
 ``flash_attention(q, k, v, scale)`` takes (B, N, H, D), (B, M, H, D),
 (B, M, H, D) tensors of one dtype, bf16 or f32 (f32 operands are rounded to
-bf16 in shared memory; the products accumulate in f32). For CUDA tensors it
+bf16 in shared memory, but for the scores at D <= 16, which take bf16 hi
+and lo parts of q and k; the products accumulate in f32), with D a multiple
+of 8 up to ``MAX_HEAD_DIM``, or ``WIDE_HEAD_DIM`` in bf16 (the VAE
+mid-block's one head, which the JAX rule sends to its kernel when the
+block's grid is not a multiple of its window). For CUDA tensors it
 launches the forward kernel (or raises on what the kernel does not take);
 when autograd records, it goes through ``FlashAttention``, whose forward
 also writes the row log-sum-exp and whose backward launches K1-bwd. For CPU
@@ -36,6 +41,7 @@ import torch
 from .build import load_library
 
 MAX_HEAD_DIM = 160
+WIDE_HEAD_DIM = 512  # the forward in bf16 only
 MAX_HEAD_DIM_BWD = 128
 
 # launches of the CUDA kernels in this process (plain-version calls
@@ -96,7 +102,11 @@ def attention_bwd_plain(q, k, v, out, dout, lse, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check(q, k, v, max_head_dim: int = MAX_HEAD_DIM):
+def _check(q, k, v, max_head_dim: int = MAX_HEAD_DIM, wide: bool = True):
+    """K1's rules (K1-bwd's with ``max_head_dim`` 128 and no ``wide``):
+    one dtype, bf16 or f32; D a multiple of 8 up to ``max_head_dim``, or
+    ``WIDE_HEAD_DIM`` in bf16 with ``wide``; contiguous, 16-byte aligned
+    tensors on one device."""
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPES):
         raise TypeError(f"flash_attention takes bf16 or f32 of one dtype, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -106,9 +116,11 @@ def _check(q, k, v, max_head_dim: int = MAX_HEAD_DIM):
     b, _, h, d = q.shape
     if k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"q{tuple(q.shape)} and k{tuple(k.shape)} disagree")
-    if d % 8 or d > max_head_dim:
-        raise ValueError(f"head dim {d} unsupported (multiple of 8, "
-                         f"<= {max_head_dim})")
+    wide_ok = wide and d == WIDE_HEAD_DIM and q.dtype == torch.bfloat16
+    if (d % 8 or d > max_head_dim) and not wide_ok:
+        raise ValueError(f"head dim {d} in {q.dtype} unsupported (multiple "
+                         f"of 8, <= {max_head_dim}"
+                         + (f", or {WIDE_HEAD_DIM} in bf16)" if wide else ")"))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -138,12 +150,22 @@ def flash_attention_cuda(q, k, v, scale: float, with_lse: bool = False):
     return (out, lse) if with_lse else out
 
 
+def bwd_di(out, dout):
+    """di = rowsum(out * dout), (B, H, N) f32 contiguous, as K1-bwd takes
+    it: dout rounded to bf16, as the kernel rounds it for dP = dO V^T, so
+    that di = rowsum(P * dP) holds in the kernel's own arithmetic (a di
+    from the unrounded dout is off by dout's rounding in every row, and at
+    D = 8 dQ amplifies that)."""
+    return (out.float() * dout.to(torch.bfloat16).float()).sum(-1) \
+        .transpose(1, 2).contiguous()
+
+
 def _check_bwd(q, k, v, dout, lse, di):
     """K1-bwd's rules: the forward's, with D at most 128; dout of q's
     shape and dtype, contiguous and 16-byte aligned (its rows are read
     with 16-byte loads); lse and di (B, H, N) f32, contiguous; all on one
     device."""
-    _check(q, k, v, MAX_HEAD_DIM_BWD)
+    _check(q, k, v, MAX_HEAD_DIM_BWD, wide=False)
     if dout.shape != q.shape or dout.dtype != q.dtype \
             or not dout.is_contiguous() or dout.data_ptr() % 16:
         raise ValueError("dout must be contiguous, 16-byte aligned, of q's "
@@ -181,9 +203,10 @@ def flash_attention_bwd_cuda(q, k, v, dout, lse, di, scale: float):
 class FlashAttention(torch.autograd.Function):
     """K1 with K1-bwd as its gradient. The forward saves the row
     log-sum-exp; the backward computes di = rowsum(out * dout) in plain
-    torch (as the TPU path does in plain jnp, ``flash_attention.py:273``)
-    and launches K1-bwd. On CPU tensors both halves run their plain
-    versions, so the tests reach this class without a card."""
+    torch (``bwd_di``, as the TPU path does in plain jnp,
+    ``flash_attention.py:273``) and launches K1-bwd. On CPU tensors both
+    halves run their plain versions, so the tests reach this class without
+    a card."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale: float):
@@ -203,8 +226,8 @@ class FlashAttention(torch.autograd.Function):
         if not q.is_cuda:
             return (*attention_bwd_plain(q, k, v, out, dout, lse, ctx.scale),
                     None)
-        di = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
-        return (*flash_attention_bwd_cuda(q, k, v, dout, lse, di, ctx.scale),
+        return (*flash_attention_bwd_cuda(q, k, v, dout, lse,
+                                          bwd_di(out, dout), ctx.scale),
                 None)
 
 

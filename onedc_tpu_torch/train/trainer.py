@@ -20,7 +20,9 @@ Differences, by design or not yet ported:
   keys (``:222``, ``:245``); the numbers differ from ``jax.random``'s.
 
 The trainer runs on the card unless the caller names a device: with no
-device and no GPU it raises (``resolve_device``, as ``OneDCRuntime``).
+device and no GPU it raises (``resolve_device``, as ``OneDCRuntime``). A
+step runs under ``utils.numerics.pinned_numerics`` (f32 without TF32,
+deterministic cuDNN).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 from ..data.crops import MultiResolutionCrop, random_crop
 from ..models.onedc import OneDC, resolve_device
 from ..nn.vae import hwio_conv_weights
+from ..utils.numerics import pinned
 from .losses import RDLoss
 from .step import create_train_state, make_train_step
 
@@ -117,6 +120,7 @@ class Trainer:
         gen.manual_seed(((self.seed + 1) << 32) + step)
         return gen
 
+    @pinned
     def train_one_step(self, step: int) -> Dict[str, float]:
         if self.train_iter is None:
             raise ValueError("no batches: pass an iterable of numpy batches "

@@ -56,6 +56,35 @@ def test_can_flash_rule_is_the_jax_rule():
         assert patt.can_flash(n, m) == jatt.can_flash(n, m), (n, m)
 
 
+def test_kernel_route_is_the_jax_rule_within_k1s_head_dims():
+    """On the card both attention entry points route by ``can_flash`` alone,
+    and K1's checks admit each head dim that the rule sends it on the
+    model's paths: 8, 40, 80 and 160 in both dtypes, and the VAE
+    mid-block's single 512-wide head in bf16 (a 512x704 image: a 64x88
+    grid, not a multiple of its 16-pixel window, one attention over 5632
+    tokens, which the JAX package also sends to its Pallas kernel). Other
+    head dims, and 512 in f32, raise instead of reaching a plain version."""
+
+    def check(d, dtype):
+        q = torch.empty((1, 256, 1, d), dtype=dtype)
+        k1._check(q, q, q)
+
+    assert patt.can_flash(64 * 88, 64 * 88)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (8, 40, 80, 160):
+            check(d, dtype)
+        for d in (12, 168, 256):
+            with pytest.raises(ValueError):
+                check(d, dtype)
+    check(512, torch.bfloat16)
+    with pytest.raises(ValueError):
+        check(512, torch.float32)
+    q = torch.empty((1, 256, 1, 512), dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # K1-bwd: D <= 128
+        k1._check_bwd(q, q, q, q, torch.empty((1, 1, 256)),
+                      torch.empty((1, 1, 256)))
+
+
 @pytest.mark.parametrize("shape", [(1, 8, 8, 32, 32), (2, 5, 7, 64, 32)])
 def test_affine_silu_conv3x3_matches_jax(shape):
     b, h, w, cin, cout = shape
@@ -229,6 +258,25 @@ def test_k1_bound_counts_the_exponentials(shape, by, ms):
     b, n, h, _ = shape
     bwd, _ = cs.attention_bound(*shape, 4, backward=True)
     assert bwd >= cs.bound_ms(0.0, 0.0, float(b) * h * n * n)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_di_reads_the_rounded_dout(dtype):
+    """``bwd_di``, the di that autograd hands K1-bwd, is rowsum(out *
+    dout) with dout rounded to bf16, as the kernel reads dout for dP = dO
+    V^T: (B, H, N) f32, contiguous. For f32 that differs from the sum with
+    the unrounded dout."""
+    gen = torch.Generator().manual_seed(0)
+    out, dout = (torch.randn((2, 33, 3, 8), generator=gen).to(dtype)
+                 for _ in range(2))
+    di = k1.bwd_di(out, dout)
+    assert di.shape == (2, 3, 33) and di.dtype == torch.float32
+    assert di.is_contiguous()
+    want = torch.einsum("bnhd,bnhd->bhn", out.float(),
+                        dout.bfloat16().float())
+    torch.testing.assert_close(di, want, rtol=1e-6, atol=1e-6)
+    exact = torch.einsum("bnhd,bnhd->bhn", out.float(), dout.float())
+    assert torch.equal(want, exact) == (dtype == torch.bfloat16)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "dout_shape",

@@ -1,12 +1,16 @@
-"""The slice as a whole: streams written by the JAX package's
-``OneDCRuntime.encode`` decode in the port (tiny geometry, f32, CPU).
+"""The lambda model as a whole (tiny geometry, f32, CPU): streams written
+by the JAX package's ``OneDCRuntime.encode`` decode in the port, and the
+port's own encode writes the same bytes.
 
 The port must read the same CDF indexes and the same rANS symbols at all
 4 steps, give a y_hat within 1e-5 of the JAX loop's (each framework
 computes the means with its own float math, so bit equality is not
 expected), and an image within 2e-3 of the JAX decode (the UNet's x0
 recovery divides by sqrt(alpha_bar(999)) ~ 0.069, which amplifies the
-frameworks' f32 differences before the VAE).
+frameworks' f32 differences before the VAE). Its encode must write the
+JAX package's containers byte for byte, from ``encode``, ``encode_batch``
+and ``encode_many``, and each stream must decode in the port to its
+writer's symbols and y_hat.
 """
 
 import jax.numpy as jnp
@@ -17,22 +21,30 @@ import torch
 from chip_smoke import write_synthetic_stream
 from onedc_tpu.models.onedc import OneDCRuntime as JaxOneDCRuntime
 from onedc_tpu_torch.models.onedc import OneDCRuntime
-from torch_port_common import port_model, tiny_jax_model, to_np
+from torch_port_common import (
+    IMAGE_TOL,
+    port_model,
+    seeded_images,
+    tiny_jax_model,
+    to_np,
+)
 
 Y_HAT_TOL = 1e-5
-IMAGE_TOL = 2e-3
 
 
 @pytest.fixture(scope="module")
-def jax_side():
+def jax_encodes():
+    """The JAX runtime and its (stream, bpp dict) of each test image."""
     jm, params = tiny_jax_model()
     rt = JaxOneDCRuntime(jm, params)
     rt.update(force=True)
-    rng = np.random.default_rng(7)
-    images = [rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32),
-              rng.uniform(-1, 1, (1, 50, 39, 3)).astype(np.float32)]
-    streams = [bytes(rt.encode(jnp.asarray(im))[0]) for im in images]
-    return rt, streams
+    return rt, [rt.encode(jnp.asarray(im)) for im in seeded_images()]
+
+
+@pytest.fixture(scope="module")
+def jax_side(jax_encodes):
+    rt, encodes = jax_encodes
+    return rt, [bytes(s) for s, _ in encodes]
 
 
 @pytest.fixture(scope="module")
@@ -121,3 +133,127 @@ def test_write_synthetic_stream_round_trips(port_rt):
     assert list(stage_ms) == ["begin", "updates_with_rans", "finish_unet_x0",
                               "vae"]
     assert all(ms > 0 for ms in stage_ms.values())
+
+
+def _plan_diff(jrt, port_rt, image) -> str:
+    """Where the two write plans of one image differ: the count of
+    differing indexes and symbols at each step."""
+    from onedc_tpu.entropy.framing import get_padding_size
+    _, h, w, _ = image.shape
+    pad = get_padding_size(h, w, jrt.ds)
+    jout = jrt._encode_dev(jrt.params, jrt._pad_replicate(
+        jnp.asarray(image), pad))
+    pout = port_rt.write_plan(image)
+    return "; ".join(
+        f"step {s}: {int((np.asarray(jout['indexes_w'][s]) != to_np(pout['indexes_w'][s])).sum())} "
+        f"indexes, {int((np.asarray(jout['y_q_w'][s]) != to_np(pout['y_q_w'][s])).sum())} symbols"
+        for s in range(4))
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["64x64", "50x39"])
+def test_port_encode_writes_jax_bytes(jax_encodes, port_rt, which):
+    jrt, encodes = jax_encodes
+    image = seeded_images()[which]
+    stream, bpp = port_rt.encode(image)
+    want_stream, want_bpp = encodes[which]
+    assert stream == bytes(want_stream), _plan_diff(jrt, port_rt, image)
+    assert bpp == want_bpp
+
+
+def _assert_decodes_to_plan(rt, stream, plan, row):
+    """The port decodes ``stream`` to row ``row`` of the device write plan
+    ``plan``: the same indexes and symbols at each step, the same y_hat."""
+    trace = {}
+    rt.decode(stream, trace)
+    for s, (idx, sym) in enumerate(trace["steps"]):
+        np.testing.assert_array_equal(idx, to_np(plan["indexes_w"][s][row:row + 1]))
+        np.testing.assert_array_equal(sym, to_np(plan["y_q_w"][s][row:row + 1]))
+    assert torch.equal(trace["y_hat"], plan["y_hat"][row:row + 1])
+
+
+def test_encode_many_and_batch_match_serial(jax_side, port_rt):
+    """``encode_many`` over two sizes and ``encode_batch`` of a same-size
+    pair write the serial encodes' bytes (the port's copy of
+    tests/test_onedc.py::test_encode_many_matches_serial), and every
+    stream decodes to its writer's plan."""
+    images = seeded_images()
+    _, streams = jax_side
+    many = port_rt.encode_many(images, chunk=1)
+    assert [s for s, _ in many] == streams
+    pair = np.concatenate([images[0], images[0][:, ::-1]])
+    serial = [port_rt.encode(pair[i:i + 1])[0] for i in range(2)]
+    batch = port_rt.encode_batch(pair)
+    assert [s for s, _ in batch] == serial
+    plan = port_rt.write_plan(pair)
+    for row, (stream, _) in enumerate(batch):
+        _assert_decodes_to_plan(port_rt, stream, plan, row)
+    for image, (stream, _) in zip(images, many):
+        _assert_decodes_to_plan(port_rt, stream,
+                                port_rt.write_plan(image), 0)
+
+
+@pytest.mark.parametrize("thres", [None, 0.2], ids=["no-skip", "skip-0.2"])
+def test_write_plan_matches_jax_compress(jax_encodes, port_rt, thres):
+    """The port's device write plan (VAE + ``LatentCodec.compress``, the
+    plan built through the decoder's programs) against the JAX package's
+    (``forward_four_part_prior(..., write=True)``) on the same padded
+    image: z indices, CDF indexes and symbols exactly, y_hat within
+    Y_HAT_TOL; with ``force_zero_thres`` 0.2 about two thirds of the
+    symbols are skipped (index -1), and the containers stay equal."""
+    from onedc_tpu.entropy.framing import get_padding_size
+    jrt = jax_encodes[0]
+    if thres is not None:
+        jrt = JaxOneDCRuntime(jrt.model.clone(force_zero_thres=thres),
+                              jrt.params)
+        jrt.update(force=True)
+        port_rt = OneDCRuntime(port_model(force_zero_thres=thres),
+                               device="cpu")
+    image = seeded_images()[1]
+    _, h, w, _ = image.shape
+    want = jrt._encode_dev(jrt.params, jrt._pad_replicate(
+        jnp.asarray(image), get_padding_size(h, w, jrt.ds)))
+    got = port_rt.write_plan(image)
+    np.testing.assert_array_equal(to_np(got["z_indices"]),
+                                  np.asarray(want["z_indices"]))
+    skipped = 0
+    for s in range(4):
+        idx = to_np(got["indexes_w"][s])
+        assert idx.dtype == (np.uint8 if thres is None else np.int16)
+        np.testing.assert_array_equal(idx, np.asarray(want["indexes_w"][s]))
+        np.testing.assert_array_equal(to_np(got["y_q_w"][s]),
+                                      np.asarray(want["y_q_w"][s]))
+        skipped += int((idx < 0).sum())
+    assert (skipped > 0) == (thres is not None)
+    np.testing.assert_allclose(to_np(got["y_hat"]), np.asarray(want["y_hat"]),
+                               rtol=0, atol=Y_HAT_TOL)
+    assert port_rt.encode(image) == jrt.encode(jnp.asarray(image))
+
+
+def test_codec_runtime_decode_and_files_match_jax(jax_encodes, port_rt,
+                                                  tmp_path):
+    """``encode(..., fp=)`` writes the container to a file (``bpp_file``
+    counts its bytes), ``CodecRuntime.encode`` of the padded image and its
+    VAE latent writes the same bytes, and the codec-only
+    ``CodecRuntime.decode(fp=)``
+    reads it back to the control tensor and semantic tokens of the JAX
+    package's ``CodecRuntime.decode``, within the limits of
+    ``tests/test_torch_models.py``'s codec decode programs."""
+    jrt = jax_encodes[0]
+    image = seeded_images()[1]
+    path = tmp_path / "image.bin"
+    stream, bpp = port_rt.encode(image, fp=path)
+    assert path.read_bytes() == stream
+    assert bpp["bpp_file"] == bpp["bpp"] > 0
+    # the codec-level encode of the padded image and its VAE latent
+    padded = port_rt.pad(image)
+    cond = port_rt.model.vae_encode_image(padded)
+    assert port_rt._codec_rt.encode(padded, cond, 39, 50)[0] == stream
+    x_hat, y_sem, hw, pad_hw, pad = port_rt._codec_rt.decode(fp=path)
+    jx, jy, jhw, jpad_hw, jpad = jrt._codec_rt.decode(stream=stream)
+    assert (hw, pad_hw, pad) == (jhw, jpad_hw, jpad) == ((50, 39), (64, 64),
+                                                         (0, 25, 0, 14))
+    tol = dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(to_np(x_hat.permute(0, 2, 3, 1)),
+                               np.asarray(jx), **tol)
+    np.testing.assert_allclose(to_np(y_sem.permute(0, 2, 3, 1)),
+                               np.asarray(jy), **tol)

@@ -32,6 +32,20 @@ SEED = 0
 GAIN = 0.5
 
 
+# decoded images against the JAX package's: the UNet's x0 recovery divides
+# by sqrt(alpha_bar(999)) ~ 0.069, which amplifies the frameworks' f32
+# differences before the VAE
+IMAGE_TOL = 2e-3
+
+
+def seeded_images():
+    """The two test images, (1, H, W, 3) f32 in [-1, 1]: 64x64 and a ragged
+    50x39 (both pad to 64x64)."""
+    rng = np.random.default_rng(7)
+    return [rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32),
+            rng.uniform(-1, 1, (1, 50, 39, 3)).astype(np.float32)]
+
+
 def fill_params(shapes, rng: np.random.Generator):
     """Seeded f32 leaves for a flax shape tree: kernels ~ GAIN * N(0, 1/fan_in),
     norm scales ~ 1 + N(0, 0.1^2), biases ~ N(0, 0.1^2)."""
@@ -63,12 +77,14 @@ def _tiny_jax_model(seed: int):
     return model, fill_params(shapes, np.random.default_rng(seed))
 
 
-def port_model(seed: int = SEED):
-    """A fresh port OneDC holding the same weights as ``tiny_jax_model``."""
+def port_model(seed: int = SEED, **overrides):
+    """A fresh port OneDC holding the same weights as ``tiny_jax_model``;
+    ``overrides`` change keys of the tiny config that add no weights
+    (``z_only``, ``force_zero_thres``)."""
     from onedc_tpu_torch.models.onedc import OneDC
     from onedc_tpu_torch.utils.convert import state_dict_from_jax
 
-    model = OneDC(**TINY)
+    model = OneDC(**{**TINY, **overrides})
     model.load_state_dict(state_dict_from_jax(tiny_jax_model(seed)[1]),
                           strict=True)
     return model.eval().requires_grad_(False)

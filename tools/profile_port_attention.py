@@ -48,7 +48,7 @@ def main():
                              for _ in range(4))
             out, lse = k1.flash_attention_cuda(q, k, v, d ** -0.5,
                                                with_lse=True)
-            di = (out * dout).sum(-1).transpose(1, 2).contiguous()
+            di = k1.bwd_di(out, dout)
             fwd = chip_smoke.cuda_ms(lambda: k1.flash_attention_cuda(
                 q, k, v, d ** -0.5, with_lse=True), iters=20)
             bwd = chip_smoke.cuda_ms(lambda: k1.flash_attention_bwd_cuda(

@@ -69,10 +69,6 @@ def main():
 
     card = chip_smoke.card_line()
     build.build_all()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     with torch.device("cuda"):
         model = OneDC()
     chip_smoke.init_random_weights(model, args.seed)
@@ -124,4 +120,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from onedc_tpu_torch.utils.numerics import pinned_numerics
+
+    with pinned_numerics():
+        sys.exit(main())

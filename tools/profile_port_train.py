@@ -100,10 +100,6 @@ def main():
 
     card = chip_smoke.card_line()
     build.build_all()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
     cfg = load_config("configs/train_stage1.yaml", chip_smoke.TRAIN_OVERRIDES)
     trainer = Trainer(cfg, device="cuda", batches=chip_smoke.synthetic_batches(
         args.seed, cfg["batch_size"]))
@@ -134,4 +130,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from onedc_tpu_torch.utils.numerics import pinned_numerics
+
+    with pinned_numerics():
+        sys.exit(main())
