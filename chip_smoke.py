@@ -38,7 +38,14 @@
    with the decode's launch counts, and ``decode_batch`` of both.
 7. TF32 probe (printed, not a check): on a full-width f32 runtime, how many
    CDF indexes and symbols of a 512x768 write plan move when TF32 is on.
-8. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
+8. cli path: a full-width release directory (``tests/twins.py``, F16)
+   loaded by ``eval.inference.main`` with ``checkpoint_path=``, bf16: the
+   loaded weights against the twins, ``evaluate`` of the encode path's
+   images as PNGs, ``--serving`` on them and on a Kodak-sized set (24
+   images, after a warm pass), ``--decoder_only`` in a fresh Evaluator,
+   and a TinyVAE runtime beside the large VAE's on one model (see
+   ``cli_path``).
+9. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
    overrides in ``TRAIN_OVERRIDES``, full width, f32, random seeded
    weights, seeded synthetic 1024x1024 images: two steps at 512x512
    (batch 2) and one at 768x768 (batch 1). Checks finite metrics, the
@@ -46,8 +53,8 @@
    first step (lr 0) and changed by the next, every kernel's launches per
    step, and a finite non-zero gradient on the first UNet ``attn1.to_q``
    (it arrives only through K1-bwd and K3).
-9. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
-   decode_z_only, train), the card line and, last, the device line.
+10. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
+   decode_z_only, cli, train), the card line and, last, the device line.
 
 The whole run holds the numerics the package pins in its entry points
 (``onedc_tpu_torch/utils/numerics.py``).
@@ -57,10 +64,15 @@ Any failed check raises, and the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import csv
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -147,14 +159,15 @@ K2_SHAPES = {"768x768": [((1, 96, 96, 512, 512), 10),
                            ((1, 96, 96, 512, 512), 8)]}
 # launches per decode; a 500x700 stream (512x704 padded) launches K1 at /8
 # (5632 tokens) and in the VAE decoder's mid-block
-K1_PER_CALL = {"768x768": 10, "512x768": 5, "512x704": 6}
-K2_PER_CALL = {"768x768": 28, "512x768": 28, "512x704": 28}
-# launches (K1, K2) per encode of one image, by padded size: the encoder
-# UNet's attention reaches K1 only from 2048 tokens at /16 (2304 at
-# 768x768, 1536 at 512x768, 1408 at 512x704); at 512x704 the VAE encoder's
-# mid-block attends over its whole grid (5632 tokens) in K1
+K1_PER_CALL = {"768x768": 10, "512x768": 5, "768x512": 5, "512x704": 6}
+K2_PER_CALL = {"768x768": 28, "512x768": 28, "768x512": 28, "512x704": 28}
+# launches (K1, K2) per encode of one image (or one device chunk of
+# encode_many), by padded size: the encoder UNet's attention reaches K1
+# only from 2048 tokens at /16 (2304 at 768x768, 1536 at 512x768 and
+# 768x512, 1408 at 512x704); at 512x704 the VAE encoder's mid-block attends
+# over its whole grid (5632 tokens) in K1
 ENCODE_PER_CALL = {(768, 768): (2, 20), (512, 768): (0, 20),
-                   (512, 704): (1, 20)}
+                   (768, 512): (0, 20), (512, 704): (1, 20)}
 # the encode phase's images (h, w): two 768x768, one 512x768 and a ragged
 # one that pads to 512x704
 ENCODE_SIZES = [(768, 768), (768, 768), (512, 768), (500, 700)]
@@ -222,6 +235,26 @@ TRAIN_OVERRIDES = {"optimizer": "adamw", "fsdp": False,
                    "warmup_steps": 2}
 FIRST_ATTN1 = ("unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1."
                "to_q.weight")
+# the cli phase's Kodak-sized serving set: 24 images, 18 landscape (512x768)
+# and 6 portrait (768x512) as in Kodak, the portrait ones at Kodak's places
+SERVING_SIZES = [(768, 512) if i in (4, 9, 10, 17, 18, 19) else (512, 768)
+                 for i in range(1, 25)]
+# encode_many's device chunk (its default, ONEDC_PIPELINE_CHUNK unset)
+SERVING_CHUNK = 8
+# tensors of the release that the cli phase reads back from the loaded
+# model, (file, reference name, port key): a LoRA-merged linear, a
+# LoRA-merged conv and a codec conv that the porter's rules rename
+RELEASE_PROBES = [
+    ("model", "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q",
+     "unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1.to_q."
+     "weight"),
+    ("model", "down_blocks.0.resnets.0.conv1",
+     "unet.down_blocks_0.resnets_0.conv1.weight"),
+    ("model_1", "dec.blocks.3", "codec.dec.up.conv_expand.weight"),
+]
+# launches (K1, K2) per TinyVAE decode (the cli phase's vae=tiny run): the
+# UNet's K1 as in the large VAE's decode; the TinyVAE's convs are stock
+TINY_VAE_PER_CALL = {"768x768": (10, 0)}
 
 
 def card_line() -> str:
@@ -276,24 +309,14 @@ def attention_bound(b, n, h, d, itemsize, lse=False, backward=False):
 # weights and streams
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def init_random_weights(model: torch.nn.Module, seed: int,
-                        gain: float = 0.5) -> None:
-    """Seeded weights in place: conv/linear weights gain * N(0, 1/fan_in),
-    norm weights 1 + N(0, 0.1^2), biases N(0, 0.1^2)."""
-    dev = next(model.parameters()).device
-    g = torch.Generator(device=dev)
-    g.manual_seed(seed)
-    for name, p in model.named_parameters():
-        noise = torch.randn(p.shape, generator=g, device=dev,
-                            dtype=torch.float32)
-        if name.endswith("bias"):
-            p.copy_(0.1 * noise)
-        elif p.dim() == 1:  # GroupNorm / LayerNorm weight
-            p.copy_(1 + 0.1 * noise)
-        else:
-            fan_in = p[0].numel()
-            p.copy_(gain * noise / fan_in ** 0.5)
+def init_random_weights(model: torch.nn.Module, seed: int) -> None:
+    """Seeded weights in place (``onedc_tpu_torch/models/onedc.py:
+    init_random_weights``), drawn on the model's device."""
+    from onedc_tpu_torch.models import onedc
+
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(seed)
+    onedc.init_random_weights(model, gen)
 
 
 @torch.no_grad()
@@ -1195,6 +1218,314 @@ def tf32_probe(seed: int):
     return out
 
 
+def write_release(directory: Path):
+    """The reference's release layout at full width, ``model.safetensors``
+    (SD1.5 UNet + LoRA) and ``model_1.safetensors`` (codec), from
+    ``tests/twins.py`` (numpy only, not of the JAX package), written in
+    F16 by the port's writer: (twins' seconds, write seconds, bytes,
+    {port key: f32 array}), the last the RELEASE_PROBES as the loaded
+    model must hold them: the F16 values, the LoRA adapters merged on the
+    host (base + alpha / rank * B A, alpha 8, rank 64, by a matrix product
+    of their own)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from twins import codec_twin, sd_unet_twin
+
+    from onedc_tpu_torch.utils.safetensors import save_safetensors
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:  # numpy's generator drops the GIL
+        unet, codec = ex.submit(sd_unet_twin), ex.submit(codec_twin)
+        unet, codec = unet.result(), codec.result()
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nbytes = 0
+    for name, state in (("model", unet), ("model_1", codec)):
+        path = directory / f"{name}.safetensors"
+        save_safetensors({k: v.astype(np.float16) for k, v in state.items()},
+                         path)
+        nbytes += path.stat().st_size
+    write_s = time.perf_counter() - t0
+
+    def f16(a):
+        return a.astype(np.float16).astype(np.float32)
+    probes = {}
+    for name, ref, key in RELEASE_PROBES:
+        state = unet if name == "model" else codec
+        if f"{ref}.weight" in state:
+            probes[key] = f16(state[f"{ref}.weight"])
+            continue
+        base = f16(state[f"{ref}.base_layer.weight"])
+        a = f16(state[f"{ref}.lora_A.default.weight"])
+        b = f16(state[f"{ref}.lora_B.default.weight"])
+        delta = b.reshape(b.shape[0], -1) @ a.reshape(a.shape[0], -1)
+        probes[key] = base + 8.0 / 64 * delta.reshape(base.shape)
+    return gen_s, write_s, nbytes, probes
+
+
+def decode_launches(h: int, w: int):
+    return K1_PER_CALL["{}x{}".format(*padded_size(h, w))], \
+        K2_PER_CALL["{}x{}".format(*padded_size(h, w))]
+
+
+def serving_launches(sizes):
+    """(K1, K2) launches of ``Evaluator.evaluate_batched`` on images of
+    ``sizes``: per padded size, ``encode_many``'s device chunks of
+    SERVING_CHUNK images, then one ``decode_batch`` bucket."""
+    counts: dict = {}
+    for h, w in sizes:
+        size = padded_size(h, w)
+        counts[size] = counts.get(size, 0) + 1
+    k1 = k2 = 0
+    for size, n in counts.items():
+        chunks = -(-n // SERVING_CHUNK)
+        enc, dec = ENCODE_PER_CALL[size], decode_launches(*size)
+        k1 += chunks * enc[0] + dec[0]
+        k2 += chunks * enc[1] + dec[1]
+    return k1, k2
+
+
+def check_release_loaded(model, probes: dict) -> float:
+    """Each RELEASE_PROBES tensor of ``model`` (bf16 on the card) against
+    the twins' values: within bf16's rounding (2^-8 of the largest
+    magnitude). Returns the largest such error."""
+    state = model.state_dict()
+    worst = 0.0
+    for key, want in probes.items():
+        got = state[key].float().cpu().numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        if got.shape != want.shape or not err <= 2.0 ** -8:
+            raise AssertionError(f"cli: loaded {key} is not the release's "
+                                 f"(shape {got.shape}, error {err:.3e})")
+        worst = max(worst, err)
+    return worst
+
+
+def serve_kodak_sized(ev, rt, tmp: Path, seed: int, counts):
+    """``--serving`` (``evaluate_batched``) on SERVING_SIZES seeded
+    synthetic PNGs: a warm pass, then two timed passes. Each pass launches
+    K1 and K2 as ``serving_launches`` predicts and writes the warm pass's
+    ``.bin`` bytes; the first landscape chunk's first and last streams and
+    the portrait chunk's decode to their writer's plan. Returns the timed
+    passes' (encodes/s, decodes/s)."""
+    from onedc_tpu_torch.data.images import load_image, save_image
+    from onedc_tpu_torch.entropy.framing import read_from_file
+
+    folder = tmp / "kodak"
+    folder.mkdir()
+    batch = next(synthetic_batches(seed + 1, len(SERVING_SIZES), 768))
+    names = [f"kodim{i + 1:02d}" for i in range(len(SERVING_SIZES))]
+    for name, im, (h, w) in zip(names, batch["image"], SERVING_SIZES):
+        save_image(im[:h, :w], folder / f"{name}.png")
+    ev.cfg = dict(ev.cfg, dataset_path=str(folder))
+    want = serving_launches(SERVING_SIZES)
+    rates = []
+    for run in ("warm", "timed1", "timed2"):
+        ev.out_dir = tmp / f"kodak_{run}"
+        for sub in ("bin", "recon"):
+            (ev.out_dir / sub).mkdir(parents=True)
+        summary, got = counted(counts, ev.evaluate_batched)
+        if got != want:
+            raise AssertionError(f"Kodak-sized --serving ({run}) launched "
+                                 f"{got}, expected {want}")
+        if run != "warm":
+            rates.append((summary["encodes_per_sec"],
+                          summary["decodes_per_sec"]))
+            same = [(ev.out_dir / "bin" / f"{n}.bin").read_bytes()
+                    == (tmp / "kodak_warm" / "bin" / f"{n}.bin").read_bytes()
+                    for n in names]
+            if not all(same):
+                raise AssertionError(f"Kodak-sized --serving ({run}): "
+                                     f"streams differ from the warm pass's")
+    images = [load_image(folder / f"{n}.png")[None] for n in names]
+    for size in sorted(set(SERVING_SIZES)):
+        sel = [i for i, s in enumerate(SERVING_SIZES) if s == size]
+        sel = sel[:SERVING_CHUNK]
+        plan = rt.write_plan(np.concatenate([images[i] for i in sel]))
+        for row in (0, len(sel) - 1):
+            check_stream_decodes_to_plan(
+                rt, read_from_file(tmp / "kodak_warm" / "bin"
+                                   / f"{names[sel[row]]}.bin"),
+                plan, row, f"Kodak-sized --serving {names[sel[row]]}")
+    print(f"cli --serving, Kodak-sized set ({len(names)} images: "
+          f"{SERVING_SIZES.count((512, 768))} at 512x768, "
+          f"{SERVING_SIZES.count((768, 512))} at 768x512; warm pass, then "
+          f"two timed): (encodes/s, decodes/s) {json.dumps(rates)}; K1/K2 "
+          f"launches per pass {want}; every pass wrote the same streams, "
+          f"and the checked ones decode to their writer's plan", flush=True)
+    return rates
+
+
+def cli_path(seed: int):
+    """The cli phase: ``eval.inference.main`` on the full-width release
+    layout (``write_release``, through ``checkpoint_path=``, no
+    ``vae_ckpt``: the VAE stays seeded random) and PNGs of ENCODE_SIZES,
+    in bf16. The loaded model holds the release's tensors
+    (``check_release_loaded``); every ``.bin`` decodes to its writer's
+    plan bit for bit, with the launches of the tables; ``--serving``
+    (``evaluate_batched`` on the same Evaluator) likewise on the four
+    images, and on the Kodak-sized set of ``serve_kodak_sized``, whose
+    rates are the phase's serving figures; a TinyVAE runtime (random
+    graft) on the same model decodes a 768x768 stream with K2 at 0 while
+    the Evaluator's runtime still decodes through the large VAE;
+    ``--decoder_only`` in a fresh Evaluator writes ``evaluate()``'s PNG
+    bytes. Returns the K1 and K2 launches of the ``main`` run of
+    ``evaluate``."""
+    from onedc_tpu_torch.data.images import load_image, save_image
+    from onedc_tpu_torch.entropy.framing import read_from_file
+    from onedc_tpu_torch.eval import inference
+    from onedc_tpu_torch.models.onedc import (
+        OneDCRuntime,
+        ensure_tiny_vae_params,
+    )
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+
+    counts = (k1, k2)
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_cli_"))
+    try:
+        release = tmp / "release"
+        release.mkdir()
+        gen_s, write_s, nbytes, probes = write_release(release)
+        print(f"cli: full-layout twins generated in {gen_s:.2f} s; written "
+              f"in F16 in {write_s:.2f} s, {nbytes / 1e9:.3f} GB", flush=True)
+        (tmp / "imgs").mkdir()
+        names = []
+        for i, ((h, w), im) in enumerate(zip(ENCODE_SIZES,
+                                             encode_images(seed))):
+            names.append(f"img{i}_{h}x{w}")
+            save_image(im[0], tmp / "imgs" / f"{names[-1]}.png")
+        base = ["--config", "configs/inference_lambda.yaml",
+                f"checkpoint_path={release}", f"dataset_path={tmp / 'imgs'}",
+                f"seed={seed}"]
+
+        k1.launches = 0
+        k2.launches = 0
+        ev = inference.main(base + [f"output_path={tmp / 'eval'}"])
+        torch.cuda.synchronize()
+        launches = {"K1": k1.launches, "K2": k2.launches}
+        want = tuple(map(sum, zip(*(
+            tuple(a + b for a, b in zip(ENCODE_PER_CALL[padded_size(h, w)],
+                                        decode_launches(h, w)))
+            for h, w in ENCODE_SIZES))))
+        print(f"cli: checkpoint load {ev.load_s:.2f} s ({nbytes / 1e9:.3f} "
+              f"GB read); evaluate of {len(names)} images launched K1/K2 "
+              f"{tuple(launches.values())}, expected {want}", flush=True)
+        if tuple(launches.values()) != want:
+            raise AssertionError("the cli run's launches differ from the "
+                                 "tables")
+        err = check_release_loaded(ev.model, probes)
+        print(f"cli: the loaded model holds the release's {len(probes)} "
+              f"probed tensors (LoRA merged) to {err:.3e} of their largest "
+              f"magnitude", flush=True)
+        del probes
+
+        rt = ev.runtime
+        images = [load_image(tmp / "imgs" / f"{n}.png")[None] for n in names]
+        streams = [read_from_file(tmp / "eval" / "bin" / f"{n}.bin")
+                   for n in names]
+        for (h, w), name, im, stream in zip(ENCODE_SIZES, names, images,
+                                            streams):
+            plan = rt.write_plan(im)
+            img, got = counted(counts, lambda: check_stream_decodes_to_plan(
+                rt, stream, plan, 0, f"cli {name}"))
+            if got != decode_launches(h, w) or img.shape != (1, h, w, 3):
+                raise AssertionError(f"cli {name}: decode launched {got}, "
+                                     f"image {tuple(img.shape)}")
+        print("cli: every .bin decodes to its writer's indexes, symbols and "
+              "y_hat", flush=True)
+        with open(tmp / "eval" / "bpp_detail.csv") as f:
+            rows = list(csv.DictReader(f))
+        print("cli per image (name, bpp, encode ms, decode ms) " + json.dumps(
+            [(r["name"], float(r["bpp"]), float(r["enc_s"]) * 1e3,
+              float(r["dec_s"]) * 1e3) for r in rows]), flush=True)
+        alone = {"encode": [], "decode": []}
+        for _ in range(3):
+            (stream, _), got = counted(counts, lambda: rt.encode(images[0]))
+            if got != ENCODE_PER_CALL[(768, 768)]:
+                raise AssertionError(f"cli encode launched {got}")
+            alone["encode"].append(_wall_ms(lambda: rt.encode(images[0])))
+            alone["decode"].append(_wall_ms(lambda: rt.decode(streams[0])))
+        print("cli: OneDCRuntime alone at 768x768, wall ms " +
+              json.dumps(alone) + f"; the .bin re-encoded to the same bytes: "
+              f"{stream == streams[0]}", flush=True)
+
+        # --serving on the same Evaluator: the four images (three size
+        # buckets), checked stream by stream; its rates are per-call costs
+        ev.out_dir = tmp / "serve"
+        for sub in ("bin", "recon"):
+            (ev.out_dir / sub).mkdir(parents=True)
+        _, got = counted(counts, ev.evaluate_batched)
+        want = serving_launches(ENCODE_SIZES)
+        if got != want:
+            raise AssertionError(f"--serving launched {got}, expected {want}")
+        pair_plan = rt.write_plan(np.concatenate(images[:2]))
+        for i, name in enumerate(names):
+            plan, row = (pair_plan, i) if i < 2 else (
+                rt.write_plan(images[i]), 0)
+            check_stream_decodes_to_plan(
+                rt, read_from_file(tmp / "serve" / "bin" / f"{name}.bin"),
+                plan, row, f"cli --serving {name}")
+        print(f"cli --serving of the {len(names)} images: K1/K2 launches "
+              f"{got}; every stream decodes to its writer's plan",
+              flush=True)
+        serve_kodak_sized(ev, rt, tmp, seed, counts)
+
+        # the TinyVAE decode on the same model, timed against the large
+        # VAE's; the Evaluator's runtime keeps decoding the large VAE
+        gen = torch.Generator(device=rt.device)
+        gen.manual_seed(seed)
+        tiny_rt = OneDCRuntime(ensure_tiny_vae_params(ev.model, gen),
+                               dtype=torch.bfloat16, vae="tiny")
+        img, got = counted(counts, lambda: tiny_rt.decode(streams[0]))
+        if got != TINY_VAE_PER_CALL["768x768"] or img.shape != (
+                1, 768, 768, 3) or not torch.isfinite(img).all():
+            raise AssertionError(f"TinyVAE decode: launches {got}, image "
+                                 f"{tuple(img.shape)}")
+        _, got = counted(counts, lambda: rt.decode(streams[0]))
+        if got != decode_launches(768, 768):
+            raise AssertionError(f"the large-VAE runtime launched {got} "
+                                 f"beside a TinyVAE runtime on its model")
+        large_ms, tiny_ms = [], []
+        for _ in range(3):
+            large_ms.append(_wall_ms(lambda: rt.decode(streams[0])))
+            tiny_ms.append(_wall_ms(lambda: tiny_rt.decode(streams[0])))
+        print(f"cli vae=tiny 768x768 decode: K1/K2 launches "
+              f"{TINY_VAE_PER_CALL['768x768']}; wall ms "
+              f"{json.dumps(tiny_ms)} against the large VAE's "
+              f"{json.dumps(large_ms)} (its runtime on the same model, "
+              f"launches {got})", flush=True)
+        del ev, rt, tiny_rt
+        torch.cuda.empty_cache()
+
+        # --decoder_only in a fresh Evaluator
+        dev, got = counted(counts, lambda: inference.main(base + [
+            "--decoder_only", "--decoder_bin_path", str(tmp / "eval" / "bin"),
+            f"output_path={tmp / 'decoder_only'}"]))
+        want = tuple(map(sum, zip(*(decode_launches(h, w)
+                                    for h, w in ENCODE_SIZES))))
+        same = [(tmp / "decoder_only" / "recon" / f"{n}.png").read_bytes()
+                == (tmp / "eval" / "recon" / f"{n}.png").read_bytes()
+                for n in names]
+        print(f"cli --decoder_only (fresh Evaluator, load {dev.load_s:.2f} "
+              f"s): K1/K2 launches {got}; PNG bytes equal evaluate()'s: "
+              f"{same}", flush=True)
+        if got != want or not all(same):
+            raise AssertionError("--decoder_only differs from evaluate()")
+        del dev
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp)
+    return launches
+
+
+def _wall_ms(fn) -> float:
+    """Host ms of ``fn()`` to a synchronised device."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def synthetic_batches(seed: int, batch: int, size: int = 1024):
     """Seeded synthetic images in [-1, 1]: 32-pixel blocks of random colour
     with fine noise on top, (batch, size, size, 3) f32, forever."""
@@ -1350,6 +1681,9 @@ def main():
         torch.cuda.empty_cache()
         tf32_probe(args.seed)
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cli = cli_path(args.seed)
+        print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
         train, records = train_path(args.seed)
 
     kernels = [
@@ -1357,7 +1691,8 @@ def main():
                   "onedc_tpu_torch/csrc/flash_attention.cu",
                   "onedc_tpu/nn/attention.py:43", k1_rows + k1t_rows,
                   {"decode": decode["K1"], "encode": encode["K1"],
-                   "decode_z_only": z_only["K1"], "train": train["K1"]},
+                   "decode_z_only": z_only["K1"], "cli": cli["K1"],
+                   "train": train["K1"]},
                   "768x768"),
         summarize("flash_attention_bwd",
                   "onedc_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1366,7 +1701,8 @@ def main():
         summarize("gn_silu_conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
                   "onedc_tpu/ops/pallas_conv.py:292", k2_rows + k2t_rows,
                   {"decode": decode["K2"], "encode": encode["K2"],
-                   "decode_z_only": z_only["K2"], "train": train["K2"]},
+                   "decode_z_only": z_only["K2"], "cli": cli["K2"],
+                   "train": train["K2"]},
                   "768x768"),
         summarize("conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
                   "onedc_tpu/ops/pallas_conv.py:89", k3_rows,

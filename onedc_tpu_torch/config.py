@@ -1,13 +1,15 @@
 """YAML configs with dotted overrides.
 
-JAX counterpart, copied in what the trainer needs:
-``onedc_tpu/config.py`` (``load_yaml``, ``set_path``). Configs are plain
+JAX counterpart, copied in what the trainer and the inference CLI need:
+``onedc_tpu/config.py`` (``load_yaml``, ``set_path``, ``merge``,
+``parse_cli_overrides`` :84, ``load_config`` :103). Configs are plain
 nested dicts here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import copy
+from typing import Any, Iterable, Mapping, Optional, Union
 
 import yaml
 
@@ -28,9 +30,46 @@ def set_path(cfg: dict, dotted: str, value: Any) -> None:
     node[leaf] = value
 
 
-def load_config(path, overrides: Mapping[str, Any] = ()) -> dict:
-    """The YAML file at ``path`` with each dotted key of ``overrides`` set."""
-    cfg = load_yaml(path)
-    for key, value in dict(overrides).items():
-        set_path(cfg, key, value)
+def merge(base: Mapping, override: Mapping) -> dict:
+    """Recursive merge; values in ``override`` win."""
+    out = copy.deepcopy(dict(base))
+    for k, v in override.items():
+        if isinstance(out.get(k), Mapping) and isinstance(v, Mapping):
+            out[k] = merge(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out
+
+
+def parse_cli_overrides(args: Iterable[str]) -> dict:
+    """``key.path=value`` tokens -> nested dict; values typed by YAML, and
+    a string that reads as a float ("1e-4", which YAML 1.1 leaves a
+    string) becomes one."""
+    cfg: dict = {}
+    for token in args:
+        if "=" not in token:
+            raise ValueError(f"override must look like key=value, got "
+                             f"{token!r}")
+        key, raw = token.split("=", 1)
+        value = yaml.safe_load(raw)
+        if isinstance(value, str):
+            try:
+                value = float(value)
+            except ValueError:
+                pass
+        set_path(cfg, key.lstrip("-"), value)
     return cfg
+
+
+def load_config(path: Optional[Any] = None,
+                overrides: Union[Mapping[str, Any], Iterable[str]] = ()
+                ) -> dict:
+    """The YAML file at ``path`` (or an empty config) with ``overrides``
+    on top: a mapping of dotted keys to values, or ``key.path=value``
+    command-line tokens (``parse_cli_overrides``)."""
+    cfg = load_yaml(path) if path else {}
+    if isinstance(overrides, Mapping):
+        for key, value in overrides.items():
+            set_path(cfg, key, value)
+        return cfg
+    return merge(cfg, parse_cli_overrides(overrides))

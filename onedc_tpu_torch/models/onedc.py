@@ -10,6 +10,12 @@ VAE decodes in the working dtype; encode uses the VAE posterior mean.
 ``z_only=True`` is the extreme-low-bpp model (``configs/
 inference_exlow.yaml``): its container carries the z indices only.
 
+``use_large_vae=False`` decodes through the taesd TinyVAE (JAX :60-65,
+96-98, 121-124; latents unscaled) while encode stays on the large VAE
+encoder; ``OneDCRuntime(vae="tiny")`` selects it (JAX :234-261), and
+``ensure_tiny_vae_params`` grafts a seeded random TinyVAE where no taesd
+weights are given (JAX :566).
+
 ``OneDCRuntime`` runs on the card unless the caller names another device:
 with no device and no GPU it raises, it does not drop to the CPU. Its
 device arithmetic runs under ``utils.numerics.pinned_numerics``: every
@@ -30,7 +36,7 @@ from torch import nn
 from ..entropy.framing import get_padding_size
 from ..nn.diffusion import get_x0_from_noise, make_alphas_cumprod
 from ..nn.unet_sd import SD15CodecUNet
-from ..nn.vae import AutoencoderKL, hwio_conv_weights
+from ..nn.vae import AutoencoderKL, TinyVaeDecoder, hwio_conv_weights
 from ..utils.numerics import pinned
 from .codec import LatentCodec, nchw, nhwc
 from .runtime import WRITE_KEYS, CodecRuntime, host_arrays
@@ -49,6 +55,7 @@ class OneDC(nn.Module):
                  context_dim: int = 768,
                  vae_block_channels: Sequence[int] = (128, 256, 512, 512),
                  vae_attn_patch: int = 16, vae_scaling_factor: float = 0.18215,
+                 use_large_vae: bool = True, tiny_vae_ch: int = 64,
                  conditioning_timestep: int = 999,
                  num_train_timesteps: int = 1000,
                  use_codeformer: bool = False):
@@ -59,7 +66,12 @@ class OneDC(nn.Module):
                 "modules are not ported yet")
         self.vae_scaling_factor = vae_scaling_factor
         self.conditioning_timestep = conditioning_timestep
+        self.use_large_vae = use_large_vae
+        self.tiny_vae_ch = tiny_vae_ch
+        self.vae_ch = vae_ch
         self.vae = AutoencoderKL(vae_block_channels, vae_ch, vae_attn_patch)
+        if not use_large_vae:
+            self.vae_tiny_dec = TinyVaeDecoder(tiny_vae_ch, latent_ch=vae_ch)
         self.unet = SD15CodecUNet(
             in_ch=ctrl_ch, out_ch=vae_ch, vae_ch=vae_ch,
             block_channels=sd_block_channels, context_dim=context_dim)
@@ -78,7 +90,12 @@ class OneDC(nn.Module):
             mean, _ = self.vae.encode(image)
             return mean * self.vae_scaling_factor
 
-    def vae_decode_image(self, latents):
+    def vae_decode_image(self, latents, large: Optional[bool] = None):
+        """Latents -> image NCHW through the large VAE, or the TinyVAE
+        where ``large`` is False (None: the model's ``use_large_vae``)."""
+        if not (self.use_large_vae if large is None else large):
+            # taesd's scaling factor is 1.0: the latents pass unscaled
+            return self.vae_tiny_dec(latents)
         return self.vae.decode(latents / self.vae_scaling_factor)
 
     def forward(self, image, training: bool = False,
@@ -108,10 +125,11 @@ class OneDC(nn.Module):
         eps, reduced = self.unet(x_hat, t, context)
         return get_x0_from_noise(reduced, eps, self.alphas_cumprod, t)
 
-    def generate(self, x_hat, y_semantic):
-        """Control tensor + semantic tokens -> (image NCHW, x0 f32)."""
+    def generate(self, x_hat, y_semantic, large: Optional[bool] = None):
+        """Control tensor + semantic tokens -> (image NCHW, x0 f32); the
+        VAE as ``vae_decode_image`` picks it."""
         x0 = self._one_step_x0(x_hat, y_semantic)
-        return self.vae_decode_image(x0.to(x_hat.dtype)), x0
+        return self.vae_decode_image(x0.to(x_hat.dtype), large), x0
 
     def encode_device(self, image_padded):
         """The device half of encode: image (B, 3, H, W) padded to a
@@ -120,11 +138,11 @@ class OneDC(nn.Module):
         return self.codec.compress(image_padded,
                                    self.vae_encode_image(image_padded))
 
-    def decode_device_z_only(self, z_indices):
+    def decode_device_z_only(self, z_indices, large: Optional[bool] = None):
         """z indices (B, h, w) -> image NCHW, through the z-only codec
         decode, the UNet and the VAE."""
         x_hat, y_semantic = self.codec.decompress_z_only(z_indices)
-        return self.generate(x_hat, y_semantic)[0]
+        return self.generate(x_hat, y_semantic, large)[0]
 
     # staged halves of decode_device (the JAX package's pipelined serving
     # path splits the same way; a traced decode times the stages)
@@ -134,8 +152,8 @@ class OneDC(nn.Module):
         x_hat, y_semantic = self.codec.decompress_finish(y_hat, z_semantic)
         return self._one_step_x0(x_hat, y_semantic).to(x_hat.dtype)
 
-    def decode_device_vae(self, x0):
-        return self.vae_decode_image(x0)
+    def decode_device_vae(self, x0, large: Optional[bool] = None):
+        return self.vae_decode_image(x0, large)
 
     def decode_device(self, y_hat, z_semantic):
         """NHWC y_hat + z_semantic -> image, NCHW."""
@@ -161,11 +179,24 @@ class OneDCRuntime:
     ``state``: a state dict loaded with ``strict=True`` (for example from
     ``utils.convert.state_dict_from_jax``), or None to keep the model's
     weights. ``dtype=torch.bfloat16`` casts the weights once for serving
-    (x0 stays f32).
+    (x0 stays f32). ``vae="tiny"`` decodes through the model's TinyVAE
+    (graft one with ``ensure_tiny_vae_params``), ``vae="large"`` through
+    the large VAE; None takes the model's ``use_large_vae``. The choice is
+    the runtime's (``use_large_vae``), not the model's: one model serves a
+    runtime of each kind, as the JAX package's ``model.clone`` allows.
+    Encode always runs the large VAE encoder.
     """
 
     def __init__(self, model: OneDC, state: Optional[Dict] = None,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 vae: Optional[str] = None):
+        if vae not in (None, "large", "tiny"):
+            raise ValueError(f"unknown vae mode {vae!r}")
+        self.use_large_vae = (model.use_large_vae if vae is None
+                              else vae == "large")
+        if not self.use_large_vae and not hasattr(model, "vae_tiny_dec"):
+            raise ValueError("vae='tiny' needs TinyVAE weights: see "
+                             "ensure_tiny_vae_params")
         self.device = resolve_device(device)
         if state is not None:
             model.load_state_dict(state, strict=True)
@@ -322,7 +353,7 @@ class OneDCRuntime:
         z = np.concatenate([self.z_indices(d) for d in decs])
         if self.z_only:
             image = self.model.decode_device_z_only(
-                torch.from_numpy(z).to(self.device))
+                torch.from_numpy(z).to(self.device), self.use_large_vae)
             return nhwc(image).float()
         rt = self._codec_rt
         coders = rt.make_stream_coders([d["bit_stream_y"] for d in decs])
@@ -333,7 +364,7 @@ class OneDCRuntime:
         if trace is not None:
             trace["y_hat"] = y_hat
             stage_done("finish_unet_x0")
-        image = self.model.decode_device_vae(x0)
+        image = self.model.decode_device_vae(x0, self.use_large_vae)
         if trace is not None:
             stage_done("vae")
         return nhwc(image).float()
@@ -387,3 +418,36 @@ class OneDCRuntime:
                 for row, i in enumerate(sel):
                     out[i] = self._unpad(preds[row:row + 1], decs[i])
         return out
+
+
+@torch.no_grad()
+def init_random_weights(module: nn.Module, generator: torch.Generator,
+                        gain: float = 0.5) -> None:
+    """Seeded weights in place, drawn on the generator's device in
+    parameter order: conv / linear weights gain * N(0, 1/fan_in), norm
+    weights 1 + N(0, 0.1^2), biases N(0, 0.1^2)."""
+    for name, p in module.named_parameters():
+        noise = torch.randn(p.shape, generator=generator,
+                            device=generator.device, dtype=torch.float32)
+        if name.endswith("bias"):
+            p.copy_(0.1 * noise)
+        elif p.dim() == 1:  # GroupNorm / LayerNorm weight
+            p.copy_(1 + 0.1 * noise)
+        else:
+            fan_in = p[0].numel()
+            p.copy_(gain * noise / fan_in ** 0.5)
+
+
+def ensure_tiny_vae_params(model: OneDC, generator: torch.Generator
+                           ) -> OneDC:
+    """``model`` with a TinyVAE decoder: its own if it has one, else a new
+    one on the model's device with seeded random weights from
+    ``generator``. The taesd weights are an outside artifact; random ones
+    serve smoke runs only."""
+    if hasattr(model, "vae_tiny_dec"):
+        return model
+    device = next(model.parameters()).device
+    tiny = TinyVaeDecoder(model.tiny_vae_ch, latent_ch=model.vae_ch).to(device)
+    init_random_weights(tiny, generator)
+    model.vae_tiny_dec = tiny
+    return model

@@ -11,6 +11,10 @@ Every ``VaeResnetBlock`` conv goes through ``affine_silu_conv3x3``
 per-image affine, and on the card kernel K2 applies it, the SiLU and the
 3x3 conv in one pass, so the normalised tensor never reaches device
 memory.
+
+``TinyVaeDecoder`` (JAX ``nn/vae.py:250-283``) is the taesd decoder, the
+reference's small-VAE option (``use_large_vae=False``): stock convs only,
+no hand kernel.
 """
 
 from __future__ import annotations
@@ -241,3 +245,51 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(z)
+
+
+# ---------------------------------------------------------------------------
+# Tiny VAE decoder (taesd architecture)
+# ---------------------------------------------------------------------------
+
+class TaesdBlock(nn.Module):
+    """relu(conv(relu(conv(relu(conv(x))))) + skip(x)); the skip is a
+    bias-free 1x1 conv when the channels change."""
+
+    def __init__(self, in_ch: int, ch: int):
+        super().__init__()
+        self.conv_0 = conv3x3(in_ch, ch)
+        self.conv_2 = conv3x3(ch, ch)
+        self.conv_4 = conv3x3(ch, ch)
+        if in_ch != ch:
+            self.skip = conv1x1(in_ch, ch, bias=False)
+
+    def forward(self, x):
+        h = F.relu(self.conv_0(x))
+        h = F.relu(self.conv_2(h))
+        h = self.conv_4(h)
+        skip = self.skip(x) if hasattr(self, "skip") else x
+        return F.relu(h + skip)
+
+
+class TinyVaeDecoder(nn.Module):
+    """taesd decoder: latent (B, latent_ch, h, w) -> image (B, out_ch, 8h,
+    8w), the latent clamped by tanh(z / 3) * 3 first."""
+
+    def __init__(self, ch: int = 64, out_ch: int = 3, latent_ch: int = 4):
+        super().__init__()
+        self.conv_in = conv3x3(latent_ch, ch)
+        for stage in range(3):
+            for b in range(3):
+                self.add_module(f"stage{stage}_block{b}", TaesdBlock(ch, ch))
+            self.add_module(f"stage{stage}_conv",
+                            UpsampleConv2x(ch, ch, bias=False))
+        self.final_block = TaesdBlock(ch, ch)
+        self.conv_out = conv3x3(ch, out_ch)
+
+    def forward(self, z):
+        x = F.relu(self.conv_in(torch.tanh(z / 3.0) * 3.0))
+        for stage in range(3):
+            for b in range(3):
+                x = getattr(self, f"stage{stage}_block{b}")(x)
+            x = getattr(self, f"stage{stage}_conv")(x)
+        return self.conv_out(self.final_block(x))

@@ -14,6 +14,10 @@ kernel becomes (C, 1, 3, 3) by the same transpose); Dense kernel
 strict=True)`` then raises on any key left over on either side: every leaf
 of the tree, the encode side (``vae/encoder``, ``codec/enc``,
 ``codec/hyper_enc``) included, must have its parameter in the port.
+
+``state_dict_from_safetensors`` reads the inference CLI's ``ckpt=``
+flavour: such a tree saved with "/"-joined keys, as
+``onedc_tpu/utils/checkpoint.py:save_safetensors`` writes it.
 """
 
 from __future__ import annotations
@@ -22,6 +26,10 @@ from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from .safetensors import load_safetensors, tensor_from_numpy, \
+    unflatten_params
+
 
 def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
     for k, v in tree.items():
@@ -58,5 +66,13 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, value in _leaves(params):
         key, arr = convert_leaf(path, np.asarray(value, np.float32))
-        out[key] = torch.from_numpy(arr)
+        out[key] = tensor_from_numpy(arr)
     return out
+
+
+def state_dict_from_safetensors(path) -> Dict[str, torch.Tensor]:
+    """A safetensors file of a JAX param tree ("/"-joined keys, with or
+    without the top ``params/``) -> f32 state dict."""
+    flat = load_safetensors(path)
+    return state_dict_from_jax(unflatten_params(
+        {k: v.float().numpy() for k, v in flat.items()}))

@@ -1,5 +1,7 @@
 """The port stands alone: importing it (or chip_smoke.py) loads neither
-jax, flax nor onedc_tpu; its entry points need the card unless told
+jax, flax nor onedc_tpu, nor the safetensors, PIL and pandas packages
+that the card's machine lacks (PIL only inside the functions that read
+other formats than PNG); its entry points need the card unless told
 otherwise."""
 
 import re
@@ -13,11 +15,18 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "onedc_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "onedc_tpu")
+# not at module level: the card's machine has none of them
+ABSENT_ON_THE_CARD = ("safetensors", "PIL", "pandas")
 TRAINING_MODULES = ("onedc_tpu_torch.entropy.bound", "onedc_tpu_torch.config",
                     "onedc_tpu_torch.data.crops",
                     "onedc_tpu_torch.train.losses",
                     "onedc_tpu_torch.train.step",
-                    "onedc_tpu_torch.train.trainer")
+                    "onedc_tpu_torch.train.trainer",
+                    "onedc_tpu_torch.data.images",
+                    "onedc_tpu_torch.eval.inference",
+                    "onedc_tpu_torch.utils.logging",
+                    "onedc_tpu_torch.utils.port_torch",
+                    "onedc_tpu_torch.utils.safetensors")
 
 
 def test_import_loads_no_jax_and_no_onedc_tpu():
@@ -29,7 +38,7 @@ def test_import_loads_no_jax_and_no_onedc_tpu():
         "    __import__(m.name)\n"
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
+        f"{FORBIDDEN + ABSENT_ON_THE_CARD!r})\n"
         f"missing = [m for m in {TRAINING_MODULES!r} if m not in "
         "sys.modules]\n"
         "print(len([m for m in sys.modules if m.startswith("
@@ -38,7 +47,7 @@ def test_import_loads_no_jax_and_no_onedc_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, rest = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 27
+    assert int(n_modules) >= 33
     assert rest.strip() == "[] []"  # the walk reached every training module
 
 
@@ -47,7 +56,10 @@ def test_source_imports_nothing_of_the_jax_package():
         r"^\s*(from|import)\s+(jax|jaxlib|flax|onedc_tpu)(\.|\s|$)", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 20
-    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    top_level = re.compile(
+        r"^(from|import)\s+(safetensors|PIL|pandas)(\.|\s|$)", re.M)
+    offenders = [str(f) for f in files if pattern.search(f.read_text())
+                 or top_level.search(f.read_text())]
     assert offenders == []
 
 
