@@ -36,16 +36,30 @@
 6. z-only path: ``OneDC(z_only=True)`` with the lambda model's weights in
    bf16 encodes (no y stream) and decodes the 768x768 and 512x768 images,
    with the decode's launch counts, and ``decode_batch`` of both.
-7. TF32 probe (printed, not a check): on a full-width f32 runtime, how many
+7. Serving phase, on the same runtime: ``pick_stream_scale`` on a
+   768x768 probe calibrates the weights (``utils/calibrate.py``) into the
+   released 0.02-0.15 bpp band; the Kodak-sized set (SERVING_SIZES) and
+   SERVE_SQUARE 768x768 images go through ``encode_many`` and the
+   pipelined ``decode_batch`` (``serving/pipeline.py``): every row's y_hat
+   is its writer's plan's bit for bit, every update takes int8 symbols,
+   launches as ``batch_launches``, images within the BATCH_* limits of
+   single decodes; decodes/s at the defaults, at depth 1 and per stream,
+   and peak memory. Then a BUNDLE_BUCKET serving bundle
+   (``utils/aot.py``, export seconds and bytes) serves the 768x768
+   streams in a fresh process (``--serve-bundle``): ``ServingDecoder``
+   and ``ServingEncoder`` with no model module loaded, their launches,
+   rows and containers checked against the writers' plans, and the
+   bundle's decodes/s.
+8. TF32 probe (printed, not a check): on a full-width f32 runtime, how many
    CDF indexes and symbols of a 512x768 write plan move when TF32 is on.
-8. cli path: a full-width release directory (``tests/twins.py``, F16)
+9. cli path: a full-width release directory (``tests/twins.py``, F16)
    loaded by ``eval.inference.main`` with ``checkpoint_path=``, bf16: the
    loaded weights against the twins, ``evaluate`` of the encode path's
    images as PNGs, ``--serving`` on them and on a Kodak-sized set (24
    images, after a warm pass), ``--decoder_only`` in a fresh Evaluator,
    and a TinyVAE runtime beside the large VAE's on one model (see
    ``cli_path``).
-9. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
+10. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
    overrides in ``TRAIN_OVERRIDES``, full width, f32, random seeded
    weights, seeded synthetic 1024x1024 images: two steps at 512x512
    (batch 2) and one at 768x768 (batch 1). Checks finite metrics, the
@@ -53,8 +67,9 @@
    first step (lr 0) and changed by the next, every kernel's launches per
    step, and a finite non-zero gradient on the first UNet ``attn1.to_q``
    (it arrives only through K1-bwd and K3).
-10. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
-   decode_z_only, cli, train), the card line and, last, the device line.
+11. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
+   decode_z_only, serve, bundle, cli, train), the card line and, last,
+   the device line.
 
 The whole run holds the numerics the package pins in its entry points
 (``onedc_tpu_torch/utils/numerics.py``).
@@ -239,8 +254,21 @@ FIRST_ATTN1 = ("unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1."
 # and 6 portrait (768x512) as in Kodak, the portrait ones at Kodak's places
 SERVING_SIZES = [(768, 512) if i in (4, 9, 10, 17, 18, 19) else (512, 768)
                  for i in range(1, 25)]
-# encode_many's device chunk (its default, ONEDC_PIPELINE_CHUNK unset)
+# encode_many's device chunk and the pipelined decode_batch's chunk (their
+# default, ONEDC_PIPELINE_CHUNK unset), and the VAE sub-batch of the
+# pipelined schedule (ONEDC_VAE_CHUNK unset)
 SERVING_CHUNK = 8
+VAE_CHUNK = 8
+# the serving phase: the Kodak-sized set and SERVE_SQUARE images at 768x768,
+# encoded with calibrated weights; the bundle's bucket (H, W, batch) and
+# the images ServingEncoder encodes (the first of the 768x768 ones)
+SERVE_SQUARE = 16
+SERVE_SIZES = SERVING_SIZES + [(768, 768)] * SERVE_SQUARE
+BUNDLE_BUCKET = (768, 768, 8)
+BUNDLE_ENCODE = 8
+# modules a bundle process must not load: the model code
+MODEL_MODULES = ("onedc_tpu_torch.models", "onedc_tpu_torch.nn.unet_sd",
+                 "onedc_tpu_torch.nn.vae", "onedc_tpu_torch.eval")
 # tensors of the release that the cli phase reads back from the loaded
 # model, (file, reference name, port key): a LoRA-merged linear, a
 # LoRA-merged conv and a codec conv that the porter's rules rename
@@ -851,8 +879,8 @@ def check_batch(rt, written, singles, counts):
     row the stream got beside the other stream, bit for bit."""
     streams = [s for s, _, _ in written]
     batch, got = counted(counts, lambda: rt.decode_batch(streams))
-    want = (K1_PER_CALL["768x768"] + K1_PER_CALL["512x768"],
-            K2_PER_CALL["768x768"] + K2_PER_CALL["512x768"])
+    # the 768x768 pair: one pipelined chunk; the 512x768 stream: a decode
+    want = batch_launches([(768, 768), (768, 768), (512, 768)])
     if got != want:
         raise AssertionError(f"decode_batch launched K1/K2 {got}, "
                              f"expected {want}")
@@ -873,7 +901,7 @@ def check_batch(rt, written, singles, counts):
     for row in (0, 1):
         twice, got = counted(counts,
                              lambda: rt.decode_batch([streams[row]] * 2))
-        if got != (K1_PER_CALL["768x768"], K2_PER_CALL["768x768"]):
+        if got != batch_launches([(768, 768)] * 2):
             raise AssertionError(f"decode_batch launched K1/K2 {got}")
         if not torch.equal(twice[row], batch[row]):
             raise AssertionError(f"decode_batch row {row} depends on the "
@@ -1171,6 +1199,334 @@ def z_only_path(rt, seed: int):
     return launches
 
 
+def serve_images(seed: int):
+    """SERVE_SIZES images from ``synthetic_batches``: (1, h, w, 3) f32."""
+    batch = next(synthetic_batches(seed + 3, len(SERVE_SIZES), 768))["image"]
+    return [np.ascontiguousarray(im[None, :h, :w])
+            for im, (h, w) in zip(batch, SERVE_SIZES)]
+
+
+def calibrate(rt, probe, base):
+    """``pick_stream_scale`` on the 768x768 ``probe``: each candidate scale
+    of ``calibrate_stream_params`` swapped into ``rt`` from the weights
+    ``base``, until the probe's y stream lands in 0.02-0.15 bpp (or the
+    lowest). Leaves ``rt`` calibrated; returns (scale, bpp_y)."""
+    from onedc_tpu_torch.utils.calibrate import (
+        calibrate_stream_params,
+        pick_stream_scale,
+    )
+
+    def bpp_y(scale):
+        rt.set_params(calibrate_stream_params(base, scale))
+        return rt.encode(probe)[1]["bpp_y"]
+
+    scale, bpp = pick_stream_scale(bpp_y)
+    rt.set_params(calibrate_stream_params(base, scale))
+    return scale, bpp
+
+
+def recording(programs, y_hats, dtypes):
+    """``programs`` recording the y_hat each x0 program gets and the dtype
+    of the symbols each update gets."""
+    def update(step):
+        def f(yq, means, y_hat, common):
+            dtypes.append(yq.dtype)
+            return programs.update[step](yq, means, y_hat, common)
+        return f
+
+    def x0(y_hat, z_semantic):
+        y_hats.append(y_hat)
+        return programs.x0(y_hat, z_semantic)
+    return programs._replace(x0=x0, update=[update(s) for s in range(4)])
+
+
+def match_rows(y_hats, plans, what: str):
+    """Every row of the recorded chunks ``y_hats`` (chunks finish in any
+    order) is the y_hat of a writer's plan in ``plans`` bit for bit, and
+    every plan is met once; padding rows (a bundle's ragged chunk) match
+    none and are counted."""
+    left = dict(enumerate(plans))
+    pad = 0
+    for chunk in y_hats:
+        for r in range(chunk.shape[0]):
+            row = chunk[r:r + 1].to(next(iter(plans)).device)
+            hit = next((i for i, p in left.items() if p.shape == row.shape
+                        and torch.equal(p, row)), None)
+            if hit is None:
+                pad += 1
+            else:
+                del left[hit]
+    if left:
+        raise AssertionError(f"{what}: {len(left)} streams' y_hat differ "
+                             f"from their writer's plan, e.g. stream "
+                             f"{min(left)}")
+    return pad
+
+
+def check_images(got, want, what: str):
+    """Images of a batched decode against single decodes, within the
+    BATCH_* limits; returns how many are bit-identical."""
+    same = 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{what}[{i}]: bad image {tuple(a.shape)}")
+        diff = (a.float() - b.float()).abs()
+        rel_l2 = (diff.norm() / b.float().norm()).item()
+        rel_max = (diff.max() / b.float().abs().max()).item()
+        if not (rel_l2 <= BATCH_REL_L2_TOL and rel_max <= BATCH_MAX_TOL):
+            raise AssertionError(f"{what}[{i}] differs: relative L2 "
+                                 f"{rel_l2:.3e}, max {rel_max:.3e}")
+        same += bool(torch.equal(a.float(), b.float()))
+    return same
+
+
+def rates(fn, n: int, passes: int = 2):
+    """Items per second of ``fn()`` (n items, to a synchronised device),
+    one value per pass."""
+    return [n / (_wall_ms(fn) / 1e3) for _ in range(passes)]
+
+
+def serve_path(rt, seed: int, card: str):
+    """The serving phase on the decode phase's bf16 runtime: stream-rate
+    calibration, the pipelined ``decode_batch`` of the Kodak-sized set
+    plus SERVE_SQUARE 768x768 images (rows against the writers' plans,
+    images against single decodes, launches, int8 symbols, decodes/s at
+    the defaults, at depth 1 and per stream), then a BUNDLE_BUCKET serving
+    bundle decoded and encoded with in a fresh process
+    (``serve_bundle``). Returns the K1 and K2 launches of the pipelined
+    decode ("serve") and of the bundle process ("bundle")."""
+    import os
+
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.utils import aot
+
+    counts = (k1, k2)
+    images = serve_images(seed)
+    base = {k: v.clone() for k, v in rt.model.state_dict().items()}
+    t0 = time.perf_counter()
+    scale, bpp = calibrate(rt, images[-1], base)
+    del base
+    print(f"serve: calibration scale {scale} (pick_stream_scale, 768x768 "
+          f"probe): y stream {bpp:.4f} bpp, in 0.02-0.15: "
+          f"{0.02 <= bpp <= 0.15}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    encoded = rt.encode_many(images)
+    streams = [s for s, _ in encoded]
+    bpps = [b["bpp"] for _, b in encoded]
+    plans = [None] * len(images)
+    for size in bucket_counts(SERVE_SIZES):
+        sel = [i for i, (h, w) in enumerate(SERVE_SIZES)
+               if padded_size(h, w) == size]
+        for c0 in range(0, len(sel), SERVING_CHUNK):
+            chunk = sel[c0:c0 + SERVING_CHUNK]
+            y_hat = rt.write_plan(np.concatenate(
+                [images[i] for i in chunk]))["y_hat"]
+            for j, i in enumerate(chunk):
+                plans[i] = y_hat[j:j + 1]
+    print(f"serve: {len(images)} streams ({SERVING_SIZES.count((512, 768))}"
+          f" at 512x768, {SERVING_SIZES.count((768, 512))} at 768x512, "
+          f"{SERVE_SQUARE} at 768x768), {min(bpps):.4f}-{max(bpps):.4f} bpp",
+          flush=True)
+
+    # the counted run: every row against its writer's plan, the symbols'
+    # dtype of every update, the launches of the tables
+    y_hats, dtypes = [], []
+    programs = rt.decode_programs
+    rt.decode_programs = lambda: recording(programs(), y_hats, dtypes)
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = 0
+    k2.launches = 0
+    decoded, got = counted(counts, lambda: rt.decode_batch(streams))
+    launches = {"K1": k1.launches, "K2": k2.launches}
+    del rt.decode_programs
+    want = batch_launches(SERVE_SIZES)
+    if got != want:
+        raise AssertionError(f"pipelined decode_batch launched K1/K2 {got}, "
+                             f"expected {want}")
+    match_rows(y_hats, plans, "pipelined decode_batch")
+    narrowed = sum(d == torch.int8 for d in dtypes)
+    if narrowed != len(dtypes):
+        raise AssertionError(f"int8 symbols on {narrowed} of {len(dtypes)} "
+                             f"updates of the calibrated streams")
+    singles = [rt.decode(s) for s in streams]
+    same = check_images(decoded, singles, "pipelined decode_batch")
+    print(f"serve: pipelined decode_batch: every row's y_hat is its writer's "
+          f"plan's; images within the batch limits of single decodes "
+          f"({same} of {len(singles)} bit-identical); K1/K2 launches {got}; "
+          f"int8 symbols on all {len(dtypes)} updates", flush=True)
+
+    def decode_all():
+        rt.decode_batch(streams)
+
+    def decode_each():
+        for s in streams:
+            rt.decode(s)
+
+    pipelined = rates(decode_all, len(streams))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    os.environ["ONEDC_PIPELINE_DEPTH"] = "1"
+    try:
+        depth1 = rates(decode_all, len(streams))
+    finally:
+        del os.environ["ONEDC_PIPELINE_DEPTH"]
+    each = rates(decode_each, len(streams))
+    print(f"serve decodes/s on {card} ({len(streams)} streams, after the "
+          f"counted pass): pipelined (defaults) {json.dumps(pipelined)}, "
+          f"depth 1 {json.dumps(depth1)}, per-stream decode "
+          f"{json.dumps(each)}; peak device memory {peak:.2f} GiB",
+          flush=True)
+
+    # the serving bundle, exported here and served by a fresh process
+    h, w, b = BUNDLE_BUCKET
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_bundle_"))
+    try:
+        t0 = time.perf_counter()
+        arts = aot.export_serving_bundle(rt, h, w, batch=b)
+        export_s = time.perf_counter() - t0
+        aot.save_bundle(arts, tmp)
+        aot.save_weights(rt, tmp / "weights.safetensors")
+        art_bytes = sum(len(v) for k, v in arts.items() if k != "meta")
+        weight_bytes = (tmp / "weights.safetensors").stat().st_size
+        print(f"bundle {h}x{w}x{b}: exported in {export_s:.1f} s on {card} "
+              f"(per program {json.dumps(arts['meta']['export_seconds'])}); "
+              f"{len(arts) - 1} artifacts, {art_bytes} bytes, against "
+              f"{weight_bytes} bytes of weights", flush=True)
+        del arts
+        sel = [i for i, size in enumerate(SERVE_SIZES) if size == (h, w)]
+        (tmp / "streams").mkdir()
+        for j, i in enumerate(sel):
+            (tmp / "streams" / f"{j:02d}.bin").write_bytes(streams[i])
+        np.save(tmp / "encode.npy",
+                np.concatenate([images[i] for i in sel[:BUNDLE_ENCODE]]))
+        torch.cuda.empty_cache()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--serve-bundle",
+             str(tmp)], capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"the bundle process failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        res = torch.load(tmp / "result.pt", weights_only=False)
+        if res["model_modules"]:
+            raise AssertionError(f"the bundle process loaded model code: "
+                                 f"{res['model_modules']}")
+        want = pipelined_launches((h, w), len(sel), b, b)
+        if res["decode_launches"] != want:
+            raise AssertionError(f"ServingDecoder launched K1/K2 "
+                                 f"{res['decode_launches']}, expected {want}")
+        enc_want = tuple(-(-BUNDLE_ENCODE // b) * n
+                         for n in ENCODE_PER_CALL[(h, w)])
+        if res["encode_launches"] != enc_want:
+            raise AssertionError(f"ServingEncoder launched K1/K2 "
+                                 f"{res['encode_launches']}, expected "
+                                 f"{enc_want}")
+        pad = match_rows(res["y_hats"], [plans[i] for i in sel],
+                         "ServingDecoder")
+        if res["narrowed"] != res["updates"]:
+            raise AssertionError(f"ServingDecoder: int8 symbols on "
+                                 f"{res['narrowed']} of {res['updates']} "
+                                 f"updates")
+        same = check_images([im.to(rt.device) for im in res["images"]],
+                            [decoded[i] for i in sel], "ServingDecoder")
+        for j, (stream, plan) in enumerate(zip(res["containers"],
+                                               res["plans"])):
+            plan["y_hat"] = plan["y_hat"].to(rt.device)
+            check_stream_decodes_to_plan(rt, stream, plan, 0,
+                                         f"ServingEncoder[{j}]")
+        bytes_same = [c == streams[i] for c, i in zip(res["containers"], sel)]
+        square = rates(lambda: rt.decode_batch([streams[i] for i in sel]),
+                       len(sel))
+        print(f"bundle: the runtime's pipelined decode_batch of the same "
+              f"{len(sel)} streams on {card}: decodes/s "
+              f"{json.dumps(square)}", flush=True)
+        print(f"bundle: ServingDecoder's rows are their writers' plans "
+              f"({pad} padding rows), its images within the batch limits of "
+              f"the runtime's pipelined decode ({same} of {len(sel)} "
+              f"bit-identical); ServingEncoder's {len(res['containers'])} "
+              f"streams decode to its plans; their bytes equal the runtime's "
+              f"encode_many's: {bytes_same}", flush=True)
+        bundle = {"K1": res["decode_launches"][0] + res["encode_launches"][0],
+                  "K2": res["decode_launches"][1] + res["encode_launches"][1]}
+    finally:
+        shutil.rmtree(tmp)
+    return launches, bundle
+
+
+def serve_bundle(directory: Path, card: str) -> int:
+    """The bundle process (``--serve-bundle DIR``): ``ServingDecoder`` on
+    the 768x768 streams of DIR/streams and ``ServingEncoder`` on
+    DIR/encode.npy, from DIR's bundle and weights, importing no model code.
+    Writes DIR/result.pt (launches, the y_hat rows and symbol dtypes the
+    pipeline saw, the images in bf16, the containers and the encode
+    program's plans, the model modules loaded) and prints load seconds and
+    the bundle's decodes/s."""
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.serving.decoder import ServingDecoder
+    from onedc_tpu_torch.serving.encoder import ServingEncoder
+
+    counts = (k1, k2)
+    streams = [p.read_bytes()
+               for p in sorted((directory / "streams").glob("*.bin"))]
+    t0 = time.perf_counter()
+    dec = ServingDecoder(directory, directory / "weights.safetensors")
+    weights_s = time.perf_counter() - t0
+    for name in ("begin", "x0", "vae") + tuple(
+            f"update{s}{x}" for s in range(4) for x in ("", "_i8")):
+        dec.bundle.program(name)
+    load_s = time.perf_counter() - t0 - weights_s
+    y_hats, dtypes = [], []
+    programs = dec._programs
+    dec._programs = lambda: recording(programs(), y_hats, dtypes)
+    k1.launches = 0
+    k2.launches = 0
+    images, decode_launches = counted(counts,
+                                      lambda: dec.decode_batch(streams))
+    dec._programs = programs
+    bundle_rates = rates(lambda: dec.decode_batch(streams), len(streams))
+
+    enc = ServingEncoder(directory, dec.bundle.weights)
+    plans = []
+    encode = enc._encode
+
+    def record(x):
+        out = encode(x)
+        for j in range(x.shape[0]):
+            plans.append({"y_q_w": [a[j:j + 1].cpu() for a in out["y_q_w"]],
+                          "indexes_w": [a[j:j + 1].cpu()
+                                        for a in out["indexes_w"]],
+                          "y_hat": out["y_hat"][j:j + 1].cpu()})
+        return out
+    enc._encode = record
+    batch = np.load(directory / "encode.npy")
+    k1.launches = 0
+    k2.launches = 0
+    encoded, encode_launches = counted(
+        counts, lambda: enc.encode_batch([im[None] for im in batch]))
+    torch.save({
+        "decode_launches": decode_launches,
+        "encode_launches": encode_launches,
+        "y_hats": [y.cpu() for y in y_hats],
+        "updates": len(dtypes),
+        "narrowed": sum(d == torch.int8 for d in dtypes),
+        "images": [im.bfloat16().cpu() for im in images],
+        "containers": [c for c, _ in encoded],
+        "plans": plans[:len(encoded)],
+        "model_modules": sorted(m for m in sys.modules
+                                if m.startswith(MODEL_MODULES)),
+    }, directory / "result.pt")
+    print(f"bundle process on {card}: weights placed in {weights_s:.1f} s, "
+          f"{len(dec.bundle.modules)} programs loaded in {load_s:.1f} s; "
+          f"ServingDecoder K1/K2 launches {decode_launches} on "
+          f"{len(streams)} streams, decodes/s {json.dumps(bundle_rates)}; "
+          f"ServingEncoder K1/K2 launches {encode_launches} on "
+          f"{len(encoded)} images; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return 0
+
+
 def tf32_probe(seed: int):
     """Printed, not a check: on a full-width f32 runtime, a 512x768 write
     plan with TF32 on (cuDNN and cuBLAS) against the pinned plan, and a
@@ -1267,20 +1623,44 @@ def decode_launches(h: int, w: int):
         K2_PER_CALL["{}x{}".format(*padded_size(h, w))]
 
 
-def serving_launches(sizes):
-    """(K1, K2) launches of ``Evaluator.evaluate_batched`` on images of
-    ``sizes``: per padded size, ``encode_many``'s device chunks of
-    SERVING_CHUNK images, then one ``decode_batch`` bucket."""
+def bucket_counts(sizes):
+    """{padded size: number of images} of images of ``sizes``."""
     counts: dict = {}
     for h, w in sizes:
         size = padded_size(h, w)
         counts[size] = counts.get(size, 0) + 1
-    k1 = k2 = 0
-    for size, n in counts.items():
+    return counts
+
+
+def pipelined_launches(size, n: int, chunk: int = SERVING_CHUNK,
+                       vae_chunk: int = VAE_CHUNK):
+    """(K1, K2) launches of ``decode_batch`` on one bucket of ``n`` streams
+    of padded ``size``: one stream is a decode; more run the pipelined
+    schedule, K1 once per x0 chunk of ``chunk`` streams and K2 once per VAE
+    sub-batch of ``vae_chunk`` rows."""
+    k1, k2 = decode_launches(*size)
+    if n == 1:
+        return k1, k2
+    rows = [min(chunk, n - c0) for c0 in range(0, n, chunk)]
+    return len(rows) * k1, sum(-(-r // vae_chunk) for r in rows) * k2
+
+
+def batch_launches(sizes, **kw):
+    """(K1, K2) launches of ``decode_batch`` on streams of ``sizes``."""
+    per = [pipelined_launches(size, n, **kw)
+           for size, n in bucket_counts(sizes).items()]
+    return tuple(map(sum, zip(*per)))
+
+
+def serving_launches(sizes):
+    """(K1, K2) launches of ``Evaluator.evaluate_batched`` on images of
+    ``sizes``: per padded size, ``encode_many``'s device chunks of
+    SERVING_CHUNK images, then ``decode_batch``."""
+    k1, k2 = batch_launches(sizes)
+    for size, n in bucket_counts(sizes).items():
         chunks = -(-n // SERVING_CHUNK)
-        enc, dec = ENCODE_PER_CALL[size], decode_launches(*size)
-        k1 += chunks * enc[0] + dec[0]
-        k2 += chunks * enc[1] + dec[1]
+        k1 += chunks * ENCODE_PER_CALL[size][0]
+        k2 += chunks * ENCODE_PER_CALL[size][1]
     return k1, k2
 
 
@@ -1632,6 +2012,8 @@ def train_path(seed: int):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    # the serving phase's bundle process (a fresh interpreter)
+    parser.add_argument("--serve-bundle", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -1639,6 +2021,11 @@ def main():
         return 1
     t_start = time.perf_counter()
     card = card_line()
+    if args.serve_bundle is not None:
+        from onedc_tpu_torch.utils.numerics import pinned_numerics
+
+        with pinned_numerics():
+            return serve_bundle(args.serve_bundle, card)
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -1677,6 +2064,9 @@ def main():
         print(f"peak device memory (decode, encode, z-only) "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
+        t0 = time.perf_counter()
+        serve, bundle = serve_path(rt, args.seed, card)
+        print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
         del rt, model
         torch.cuda.empty_cache()
         tf32_probe(args.seed)
@@ -1691,7 +2081,8 @@ def main():
                   "onedc_tpu_torch/csrc/flash_attention.cu",
                   "onedc_tpu/nn/attention.py:43", k1_rows + k1t_rows,
                   {"decode": decode["K1"], "encode": encode["K1"],
-                   "decode_z_only": z_only["K1"], "cli": cli["K1"],
+                   "decode_z_only": z_only["K1"], "serve": serve["K1"],
+                   "bundle": bundle["K1"], "cli": cli["K1"],
                    "train": train["K1"]},
                   "768x768"),
         summarize("flash_attention_bwd",
@@ -1701,7 +2092,8 @@ def main():
         summarize("gn_silu_conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
                   "onedc_tpu/ops/pallas_conv.py:292", k2_rows + k2t_rows,
                   {"decode": decode["K2"], "encode": encode["K2"],
-                   "decode_z_only": z_only["K2"], "cli": cli["K2"],
+                   "decode_z_only": z_only["K2"], "serve": serve["K2"],
+                   "bundle": bundle["K2"], "cli": cli["K2"],
                    "train": train["K2"]},
                   "768x768"),
         summarize("conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",

@@ -163,3 +163,19 @@ class GaussianConditionalCoder:
         vals = EntropyCoder.decode_streams(
             [c.entropy_coder for c in coders], indexes, gi)
         return vals.reshape(indexes.shape)
+
+
+def make_stream_coders(master: GaussianConditionalCoder, y_streams):
+    """One coder per y bitstream, each on its own EntropyCoder, sharing the
+    CDF bank of ``master`` (JAX ``serving/decoder.py:39``)."""
+    cdf_info = master.get_cdf_info()
+    coders = []
+    for ys in y_streams:
+        ec = EntropyCoder()
+        gc = GaussianConditionalCoder()
+        gc.set_cdf_info(*cdf_info)
+        gc.entropy_coder = ec
+        gc.cdf_group_index = ec.add_cdf(*cdf_info)
+        ec.set_stream(ys)
+        coders.append(gc)
+    return coders

@@ -107,38 +107,46 @@ def load_params(model: OneDC, cfg: Mapping, device: torch.device) -> OneDC:
     return model
 
 
+def build_runtime(cfg: Mapping):
+    """The config's runtime: (OneDCRuntime, load seconds). The model's
+    weights from ``load_params``, a TinyVAE from ``tiny_vae_ckpt`` (or
+    seeded random) under ``vae=tiny``, bf16 unless ``use_bf16`` is false,
+    on the card unless ``device`` names another."""
+    quant = cfg.get("quant")
+    if quant == "w8a8":
+        raise NotImplementedError(
+            "quant=w8a8 is not ported yet (ROADMAP.md, Queue 1 item 6: "
+            "the w8a8 serving mode); run without quant=")
+    if quant is not None:
+        raise ValueError(f"unknown quant mode {quant!r}")
+    device = resolve_device(cfg.get("device"))
+    t0 = time.perf_counter()
+    model = load_params(build_model(cfg), cfg, device)
+    load_s = time.perf_counter() - t0
+    log.info("weights loaded in %.2f s", load_s)
+    vae_mode = cfg.get("vae")
+    if vae_mode == "tiny":
+        tiny_ckpt = cfg.get("tiny_vae_ckpt")
+        if tiny_ckpt:
+            tiny = TinyVaeDecoder(model.tiny_vae_ch, latent_ch=model.vae_ch)
+            tiny.load_state_dict(state_dict_from_safetensors(tiny_ckpt),
+                                 strict=True)
+            model.vae_tiny_dec = tiny.to(device)
+        else:
+            log.warning("vae=tiny without tiny_vae_ckpt=: the TinyVAE "
+                        "decoder is RANDOM INIT (smoke mode)")
+            ensure_tiny_vae_params(model,
+                                   _seeded(device, int(cfg.get("seed", 0))))
+    dtype = torch.bfloat16 if cfg.get("use_bf16", True) else None
+    return OneDCRuntime(model, dtype=dtype, device=device,
+                        vae=vae_mode), load_s
+
+
 class Evaluator:
     def __init__(self, cfg: Mapping):
         self.cfg = cfg
-        quant = cfg.get("quant")
-        if quant == "w8a8":
-            raise NotImplementedError(
-                "quant=w8a8 is not ported yet (ROADMAP.md, Queue 1 item 6: "
-                "the w8a8 serving mode); run without quant=")
-        if quant is not None:
-            raise ValueError(f"unknown quant mode {quant!r}")
-        device = resolve_device(cfg.get("device"))
-        t0 = time.perf_counter()
-        self.model = load_params(build_model(cfg), cfg, device)
-        self.load_s = time.perf_counter() - t0
-        log.info("weights loaded in %.2f s", self.load_s)
-        vae_mode = cfg.get("vae")
-        if vae_mode == "tiny":
-            tiny_ckpt = cfg.get("tiny_vae_ckpt")
-            if tiny_ckpt:
-                tiny = TinyVaeDecoder(self.model.tiny_vae_ch,
-                                      latent_ch=self.model.vae_ch)
-                tiny.load_state_dict(state_dict_from_safetensors(tiny_ckpt),
-                                     strict=True)
-                self.model.vae_tiny_dec = tiny.to(device)
-            else:
-                log.warning("vae=tiny without tiny_vae_ckpt=: the TinyVAE "
-                            "decoder is RANDOM INIT (smoke mode)")
-                ensure_tiny_vae_params(
-                    self.model, _seeded(device, int(cfg.get("seed", 0))))
-        dtype = torch.bfloat16 if cfg.get("use_bf16", True) else None
-        self.runtime = OneDCRuntime(self.model, dtype=dtype, device=device,
-                                    vae=vae_mode)
+        self.runtime, self.load_s = build_runtime(cfg)
+        self.model = self.runtime.model
         self.out_dir = Path(cfg.get("output_path", "outputs/inference"))
         (self.out_dir / "bin").mkdir(parents=True, exist_ok=True)
         (self.out_dir / "recon").mkdir(parents=True, exist_ok=True)

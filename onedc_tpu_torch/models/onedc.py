@@ -4,9 +4,10 @@ stage-I training forward, and the bitstream runtime (encode and decode).
 JAX counterpart: ``onedc_tpu/models/onedc.py`` (:41-224 ``OneDC``, with the
 training forward :156-184 and the device halves :188-223; :226-367
 ``OneDCRuntime.encode`` / ``decode``, :385-465 ``encode_batch`` /
-``encode_many``, :467-531 ``decode_batch`` and the non-pipelined
-``_decode_bucket``). As in the JAX package, x0 is recovered in f32 and the
-VAE decodes in the working dtype; encode uses the VAE posterior mean.
+``encode_many``, :467-563 ``decode_batch`` with the pipelined
+``_decode_bucket_pipelined``, :313 ``set_params``). As in the JAX
+package, x0 is recovered in f32 and the VAE decodes in the working
+dtype; encode uses the VAE posterior mean.
 ``z_only=True`` is the extreme-low-bpp model (``configs/
 inference_exlow.yaml``): its container carries the z indices only.
 
@@ -37,9 +38,18 @@ from ..entropy.framing import get_padding_size
 from ..nn.diffusion import get_x0_from_noise, make_alphas_cumprod
 from ..nn.unet_sd import SD15CodecUNet
 from ..nn.vae import AutoencoderKL, TinyVaeDecoder, hwio_conv_weights
+from ..serving.encoder import pad_replicate
+from ..serving.pipeline import DecodePrograms, pipelined_decode
+from ..utils.device import resolve_device  # noqa: F401  (re-exported)
 from ..utils.numerics import pinned
 from .codec import LatentCodec, nchw, nhwc
-from .runtime import WRITE_KEYS, CodecRuntime, host_arrays
+from .runtime import (
+    WRITE_KEYS,
+    CodecRuntime,
+    decode_begin,
+    decode_update,
+    host_arrays,
+)
 
 
 class OneDC(nn.Module):
@@ -160,17 +170,6 @@ class OneDC(nn.Module):
         return self.decode_device_vae(self.decode_device_x0(y_hat, z_semantic))
 
 
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller names a device; no GPU and no device
-    named is an error, not a fall back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "port on the CPU")
-    return torch.device("cuda")
-
-
 class OneDCRuntime:
     """The bitstream runtime: ``encode(image)`` -> (stream, bpp dict);
     ``decode(stream)`` -> (1, H, W, 3) f32 NHWC; batched ``encode_batch``,
@@ -212,16 +211,16 @@ class OneDCRuntime:
         self.ds = model.codec.ds
         self.z_only = model.codec.z_only
 
-    # -- encode -------------------------------------------------------------
+    def set_params(self, state: Dict) -> None:
+        """Swap in the weights of ``state`` (``strict=True``), as the JAX
+        ``set_params`` (:313) swaps a tree: each tensor is copied into the
+        runtime's parameter, on its device, in its dtype and memory layout
+        (channels_last on the card, the VAE convs' HWIO), so the programs
+        run as before on the new values (stream calibration, checkpoint
+        reload)."""
+        self.model.load_state_dict(state, strict=True)
 
-    @staticmethod
-    def _pad_replicate(image: torch.Tensor, pad) -> torch.Tensor:
-        """NHWC image, replicate-padded by (left, right, top, bottom)."""
-        pl, pr, pt, pb = pad
-        _, h, w, _ = image.shape
-        rows = torch.arange(-pt, h + pb, device=image.device).clamp(0, h - 1)
-        cols = torch.arange(-pl, w + pr, device=image.device).clamp(0, w - 1)
-        return image[:, rows][:, :, cols]
+    # -- encode -------------------------------------------------------------
 
     def pad(self, images) -> torch.Tensor:
         """(B, H, W, 3) images in [-1, 1], torch or numpy -> (B, 3, H', W')
@@ -230,8 +229,7 @@ class OneDCRuntime:
         package)."""
         images = torch.as_tensor(images, device=self.device).to(self.dtype)
         _, h, w, _ = images.shape
-        return nchw(self._pad_replicate(images,
-                                        get_padding_size(h, w, self.ds)))
+        return nchw(pad_replicate(images, get_padding_size(h, w, self.ds)))
 
     @pinned
     @torch.no_grad()
@@ -399,25 +397,57 @@ class OneDCRuntime:
         dec = self.parse(stream)
         return self._unpad(self.decode_padded([dec], trace), dec)
 
+    @pinned
+    @torch.no_grad()
     def decode_batch(self, streams: Sequence[bytes]) -> List[torch.Tensor]:
-        """Decode N streams, one batch per padded size (bucket; z-only: in
-        chunks of ``ONEDC_PIPELINE_CHUNK``, 8, as in the JAX package);
-        results in input order, each (1, H, W, 3) f32."""
+        """Decode N streams, bucketed by padded size; results in input
+        order, each (1, H, W, 3) f32. A bucket of more than one lambda
+        stream runs the pipelined serving schedule
+        (``serving/pipeline.py``: chunks of ``ONEDC_PIPELINE_CHUNK``, 8,
+        ``ONEDC_PIPELINE_DEPTH``, 3, in flight, the VAE in sub-batches of
+        ``ONEDC_VAE_CHUNK``, 8), as the JAX ``decode_batch`` (:467-563)
+        does; a one-stream bucket runs ``decode_padded``, and the z-only
+        model decodes in chunks of ``ONEDC_PIPELINE_CHUNK``."""
         decs = [self.parse(s) for s in streams]
         buckets: Dict[Tuple[int, int], List[int]] = {}
         for i, d in enumerate(decs):
             buckets.setdefault((d["pad_height"], d["pad_width"]),
                                []).append(i)
-        chunk = (int(os.environ.get("ONEDC_PIPELINE_CHUNK", "8"))
-                 if self.z_only else len(decs))
         out: List[Optional[torch.Tensor]] = [None] * len(decs)
-        for idxs in buckets.values():
-            for c0 in range(0, len(idxs), chunk):
-                sel = idxs[c0:c0 + chunk]
-                preds = self.decode_padded([decs[i] for i in sel])
-                for row, i in enumerate(sel):
-                    out[i] = self._unpad(preds[row:row + 1], decs[i])
+        for (ph, pw), idxs in buckets.items():
+            bucket = [decs[i] for i in idxs]
+            if self.z_only or len(idxs) == 1:
+                chunk = int(os.environ.get("ONEDC_PIPELINE_CHUNK", "8"))
+                preds = torch.cat([self.decode_padded(bucket[c0:c0 + chunk])
+                                   for c0 in range(0, len(idxs), chunk)])
+            else:
+                preds = nhwc(self._decode_pipelined(
+                    bucket, ph // self.ds, pw // self.ds)).float()
+            for row, i in enumerate(idxs):
+                out[i] = self._unpad(preds[row:row + 1], decs[i])
         return out
+
+    def decode_programs(self) -> DecodePrograms:
+        """The staged decode as the pipelined schedule dispatches it: the
+        prior programs one row at a time (``models/runtime.py``), then
+        ``decode_device_x0`` and ``decode_device_vae`` on the chunk."""
+        model, codec = self.model, self.model.codec
+        return DecodePrograms(
+            begin=lambda z: decode_begin(codec, z),
+            update=[(lambda yq, m, yh, c, _s=s: decode_update(
+                codec, _s, yq, m, yh, c)) for s in range(4)],
+            x0=model.decode_device_x0,
+            vae=lambda x0: model.decode_device_vae(x0, self.use_large_vae))
+
+    def _decode_pipelined(self, decs: List[dict], zh: int, zw: int
+                          ) -> torch.Tensor:
+        """One bucket through ``pipelined_decode``: padded images (N, 3,
+        H, W) in the working dtype."""
+        rt = self._codec_rt
+        return pipelined_decode(
+            self.decode_programs(), rt.make_stream_coders,
+            lambda b: rt.fsq.unpack_indices(b, zh * zw), decs, zh, zw,
+            self.device)
 
 
 @torch.no_grad()

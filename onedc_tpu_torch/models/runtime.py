@@ -2,8 +2,7 @@
 decode's four-part rANS <-> prior-net loop.
 
 JAX counterpart: ``onedc_tpu/models/runtime.py`` (:75-126 encode,
-:130-221 decode) and ``onedc_tpu/serving/pipeline.py:58
-_narrow_symbols``. The four-part prior forces 4 host <-> device round
+:130-221 decode). The four-part prior forces 4 host <-> device round
 trips per decode: the rANS decode of part i needs the CDF indexes that the
 prior net computes from parts < i.
 
@@ -11,9 +10,13 @@ Batch invariance: the CDF index is a truncated log-ratio of a bf16 scale,
 so a last-ulp difference in the prior nets can flip an index and desync
 rANS. cuDNN picks its algorithm by shape, so a batch of B images need not
 give an image the bits it gets alone, as the writer computed them. The
-prior programs therefore run one image at a time, on the image's own
-(1, ...) tensors; the rANS decode of all streams of a bucket is still one
-native call per step, and everything after the loop runs batched.
+prior programs (``decode_begin``, ``decode_update``) therefore take and
+give batched tensors but run the nets one image at a time, on each row's
+(1, ...) slice; the serial loop here, the pipelined schedule
+(``serving/pipeline.py``) and the exported bundle programs
+(``utils/aot.py``) all run these two functions. The rANS decode of all
+streams of a bucket is one native call per step, and everything after the
+loop runs batched.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ import torch
 
 from ..entropy.coder import EntropyCoder
 from ..entropy.framing import decode_i, read_from_file
-from ..entropy.gaussian import GaussianConditionalCoder
+from ..entropy.gaussian import GaussianConditionalCoder, make_stream_coders
 from ..serving.encoder import frame_container, write_container
+from ..serving.pipeline import narrow_symbols, upload
 from .codec import LatentCodec
 
 
@@ -41,13 +45,23 @@ def host_arrays(value):
     return value.cpu().numpy()
 
 
-def narrow_symbols(parts: np.ndarray) -> np.ndarray:
-    """Ship decoded symbols as int8 when they fit (halves the host ->
-    device upload); the update program casts to its dtype either way."""
-    if parts.dtype == np.int16 and parts.size \
-            and parts.min() >= -128 and parts.max() <= 127:
-        return parts.astype(np.int8)
-    return parts
+def decode_begin(codec: LatentCodec, z_indices: torch.Tensor) -> dict:
+    """z indices (B, h, w) -> the batched step-0 state of
+    ``LatentCodec.decompress_begin``, computed one row at a time."""
+    rows = [codec.decompress_begin(z_indices[i:i + 1])
+            for i in range(z_indices.shape[0])]
+    return {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+
+
+def decode_update(codec: LatentCodec, step: int, y_q_r, means, y_hat,
+                  common) -> dict:
+    """``LatentCodec.decompress_update`` of a batch, one row at a time:
+    {"y_hat", "means"} and, but at the last step, "indexes_r"."""
+    rows = [codec.decompress_update(step, y_q_r[i:i + 1], means[i:i + 1],
+                                    y_hat[i:i + 1], common[i:i + 1])
+            for i in range(means.shape[0])]
+    keys = ("y_hat", "means") + (("indexes_r",) if step < 3 else ())
+    return {k: torch.cat([r[k] for r in rows]) for k in keys}
 
 
 class CodecRuntime:
@@ -124,20 +138,7 @@ class CodecRuntime:
     def make_stream_coders(self, y_streams: Sequence[bytes]):
         """One GaussianConditionalCoder per y bitstream, sharing this
         runtime's CDF bank."""
-        cdf_info = self.gaussian_coder.get_cdf_info()
-        coders = []
-        for ys in y_streams:
-            ec = EntropyCoder()
-            gc = GaussianConditionalCoder()
-            gc.set_cdf_info(*cdf_info)
-            gc.entropy_coder = ec
-            gc.cdf_group_index = ec.add_cdf(*cdf_info)
-            ec.set_stream(ys)
-            coders.append(gc)
-        return coders
-
-    def _upload(self, symbols: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(narrow_symbols(symbols)).to(self.device)
+        return make_stream_coders(self.gaussian_coder, y_streams)
 
     @torch.no_grad()
     def run_four_part_decode(self, z_indices: np.ndarray,
@@ -151,15 +152,11 @@ class CodecRuntime:
         n = len(coders)
         if z_indices.shape[0] != n:
             raise ValueError(f"{z_indices.shape[0]} z rows, {n} coders")
-        codec = self.codec
-        states = [codec.decompress_begin(
-            torch.from_numpy(np.ascontiguousarray(z_indices[i:i + 1]))
-            .to(self.device)) for i in range(n)]
+        st = decode_begin(self.codec, upload(z_indices, self.device))
         if stage_done is not None:
             stage_done("begin")
         for step in range(4):
-            idx = np.concatenate([s["indexes_r"].cpu().numpy()
-                                  for s in states])
+            idx = st["indexes_r"].cpu().numpy()
             if n == 1:
                 parts = coders[0].decode_stream_with_indexes(idx)
             else:
@@ -167,13 +164,9 @@ class CodecRuntime:
                     coders, idx.reshape(n, -1)).reshape(idx.shape)
             if trace is not None:
                 trace.append((idx, parts))
-            for i, s in enumerate(states):
-                nxt = codec.decompress_update(
-                    step, self._upload(parts[i:i + 1]), s["means"],
-                    s["y_hat"], s["common"])
-                s.update(nxt)
+            st.update(decode_update(
+                self.codec, step, upload(narrow_symbols(parts), self.device),
+                st["means"], st["y_hat"], st["common"]))
         if stage_done is not None:
             stage_done("updates_with_rans")
-        y_hat = torch.cat([s["y_hat"] for s in states])
-        z_semantic = torch.cat([s["z_semantic"] for s in states])
-        return y_hat, z_semantic
+        return st["y_hat"], st["z_semantic"]

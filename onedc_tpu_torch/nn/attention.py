@@ -4,8 +4,10 @@ hand-written flash kernel (K1) for long ones on the card.
 JAX counterpart: ``onedc_tpu/nn/attention.py``. The routing rule is the
 JAX package's ``can_flash`` (:78): both sequences at least 2048 tokens and
 multiples of 128. The JAX package sends those to the Pallas TPU kernel and
-everything else to XLA; here they go to K1 (``ops/flash_attention.py``)
-when the tensors lie on the card, and to the plain version otherwise. The
+everything else to XLA; here they go to K1's operator
+(``ops/flash_attention.py``), which launches the kernel when the tensors
+lie on the card and computes the plain version otherwise. The rule looks
+at shapes alone, so an exported program keeps the operator. The
 widest head the rule sees is the VAE mid-block's single 512-wide head,
 which reaches it when the /8 grid is not a multiple of the 16-pixel window
 (a 512x704 image: 64x88, 5632 tokens); K1 takes it in bf16.
@@ -39,7 +41,7 @@ def multi_head_attention_bnhd(q, k, v, scale: Optional[float] = None):
     """(B, N, H, D) x (B, M, H, D) -> (B, N, H, D)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.is_cuda and can_flash(q.shape[1], k.shape[1]):
+    if can_flash(q.shape[1], k.shape[1]):
         return flash_attention(q, k, v, scale)
     return attention_plain(q, k, v, scale)
 
@@ -48,7 +50,7 @@ def multi_head_attention(q, k, v, scale: Optional[float] = None):
     """(B, H, N, D) x (B, H, M, D) -> (B, H, N, D)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if q.is_cuda and can_flash(q.shape[2], k.shape[2]):
+    if can_flash(q.shape[2], k.shape[2]):
         out = flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(), scale)

@@ -34,7 +34,11 @@ one pass (``dx_weights``); the kernel reads the taps in flipped order.
 For CUDA tensors each wrapper launches its kernel (or raises on what the
 kernel does not take); for CPU tensors it computes the plain version
 (``affine_silu_conv3x3_plain``, ``conv3x3_plain``, ``conv3x3_dx_plain``).
-A CUDA tensor never reaches a plain version.
+A CUDA tensor never reaches a plain version. Without autograd K2 is the
+operator ``torch.ops.onedc.affine_silu_conv3x3``
+(``affine_silu_conv3x3_op``), which picks that route when it runs, not
+when a program is traced, so an exported program (``utils/aot.py``)
+launches K2 on the card.
 """
 
 from __future__ import annotations
@@ -244,10 +248,32 @@ class AffineSiluConv3x3(torch.autograd.Function):
         return affine_silu_conv3x3_bwd(x, mul, add, w, g.contiguous())
 
 
+@torch.library.custom_op("onedc::affine_silu_conv3x3", mutates_args=(),
+                         device_types="cpu")
+def affine_silu_conv3x3_op(x: torch.Tensor, mul: torch.Tensor,
+                           add: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """K2 as the operator ``torch.ops.onedc.affine_silu_conv3x3``: the
+    plain version on the CPU, the kernel on the card (below), shapes alone
+    under a fake or meta tensor. An exported program records the operator,
+    so the device picks the route when the program runs."""
+    return affine_silu_conv3x3_plain(x, mul, add, w, bias)
+
+
+@affine_silu_conv3x3_op.register_kernel("cuda")
+def _affine_silu_conv3x3_kernel(x, mul, add, w, bias):
+    return affine_silu_conv3x3_cuda(x.contiguous(), mul.contiguous(),
+                                    add.contiguous(), w.contiguous(),
+                                    bias.contiguous())
+
+
+@affine_silu_conv3x3_op.register_fake
+def _affine_silu_conv3x3_fake(x, mul, add, w, bias):
+    return x.new_empty((*x.shape[:3], w.shape[3]))
+
+
 def affine_silu_conv3x3(x, mul, add, w, bias):
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, mul, add, w, bias)):
         return AffineSiluConv3x3.apply(x, mul, add, w, bias)
-    if x.is_cuda:
-        return affine_silu_conv3x3_cuda(x, mul, add, w, bias)
-    return affine_silu_conv3x3_plain(x, mul, add, w, bias)
+    return affine_silu_conv3x3_op(x, mul, add, w, bias)

@@ -29,7 +29,10 @@ launches the forward kernel (or raises on what the kernel does not take);
 when autograd records, it goes through ``FlashAttention``, whose forward
 also writes the row log-sum-exp and whose backward launches K1-bwd. For CPU
 tensors it computes ``attention_plain``. There is no other route: a CUDA
-tensor never reaches a plain version.
+tensor never reaches a plain version. Without autograd the forward is the
+operator ``torch.ops.onedc.flash_attention`` (``flash_attention_op``),
+which picks that route when it runs, not when a program is traced, so an
+exported program (``utils/aot.py``) launches K1 on the card.
 """
 
 from __future__ import annotations
@@ -231,10 +234,30 @@ class FlashAttention(torch.autograd.Function):
                 None)
 
 
+@torch.library.custom_op("onedc::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """K1's forward as the operator ``torch.ops.onedc.flash_attention``:
+    the plain version on the CPU, the kernel on the card (below), shapes
+    alone under a fake or meta tensor. An exported program records the
+    operator, so the device picks the route when the program runs."""
+    return attention_plain(q, k, v, scale).contiguous()
+
+
+@flash_attention_op.register_kernel("cuda")
+def _flash_attention_kernel(q, k, v, scale):
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), scale)
+
+
+@flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, scale):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
 def flash_attention(q, k, v, scale: float):
-    if not q.is_cuda:
-        return attention_plain(q, k, v, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, scale)
-    return flash_attention_cuda(q, k, v, scale)
+    return flash_attention_op(q, k, v, scale)

@@ -2,8 +2,10 @@
 what the full-width model's structure launches (on meta tensors), and its
 limits on K1's row log-sum-exp (moved out of
 ``test_torch_train_step.py``, whose module fixture runs the JAX step for
-minutes, so that these run on another worker)."""
+minutes, so that these run on another worker), and the launches of the
+pipelined serving schedule."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -156,3 +158,78 @@ def test_chip_smoke_tiny_vae_decode_launches_no_k2(monkeypatch):
                             device="meta")
             assert model.decode_device_z_only(z).shape == (1, 3, h, w)
         assert (sum(k1.values()), sum(k2.values())) == want, bucket
+
+
+class _StubCoder:
+    """A host coder that decodes zeros: the schedule's shape only."""
+
+    @staticmethod
+    def decode_streams_with_indexes(coders, indexes):
+        return np.zeros(indexes.shape, np.int16)
+
+
+def _stub_programs(calls):
+    """Device programs of the staged decode on tiny CPU tensors, counting
+    x0 calls (one K1 launch per attention layer each) and VAE calls (one
+    K2 launch per resnet conv each) with their batch sizes."""
+    from onedc_tpu_torch.serving.pipeline import DecodePrograms
+
+    def state(b):
+        z = torch.zeros((b, 1, 1, 4))
+        return {"y_hat": z, "means": z, "common": z, "z_semantic": z,
+                "indexes_r": torch.zeros((b, 1, 1, 1), dtype=torch.int32)}
+
+    def update(yq, means, y_hat, common):
+        return state(means.shape[0])
+
+    def x0(y_hat, z_semantic):
+        calls["x0"].append(y_hat.shape[0])
+        return torch.zeros((y_hat.shape[0], 4, 1, 1))
+
+    def vae(x):
+        calls["vae"].append(x.shape[0])
+        return torch.zeros((x.shape[0], 3, 1, 1))
+
+    return DecodePrograms(begin=lambda z: state(z.shape[0]),
+                          update=[update] * 4, x0=x0, vae=vae)
+
+
+@pytest.mark.parametrize("n,chunk,vae_chunk", [
+    (2, 8, 8), (18, 8, 8), (16, 8, 8), (6, 8, 8), (3, 1, 8), (3, 3, 1),
+    (11, 4, 3)])
+def test_chip_smoke_pipelined_tables_hold_the_schedule(n, chunk, vae_chunk):
+    """chip_smoke.py's ``pipelined_launches`` holds what the pipelined
+    schedule (``serving/pipeline.py``) dispatches: the schedule runs on
+    stub programs that count its x0 chunks (K1 per decode each) and VAE
+    sub-batches (K2 per decode each), every row decoded once."""
+    import chip_smoke as cs
+    from onedc_tpu_torch.serving.pipeline import pipelined_decode
+
+    calls = {"x0": [], "vae": []}
+    decs = [{"bit_stream_z": b"", "bit_stream_y": b""}] * n
+    out = pipelined_decode(
+        _stub_programs(calls), lambda ys: [_StubCoder()] * len(ys),
+        lambda data: np.zeros(1, np.int32), decs, 1, 1, "cpu",
+        chunk=chunk, depth=3, vae_chunk=vae_chunk)
+    assert out.shape[0] == n
+    assert sum(calls["x0"]) == sum(calls["vae"]) == n
+    k1, k2 = cs.decode_launches(768, 768)
+    assert cs.pipelined_launches((768, 768), n, chunk, vae_chunk) == (
+        len(calls["x0"]) * k1, len(calls["vae"]) * k2)
+
+
+def test_chip_smoke_serving_tables():
+    """The serving phase's and the cli phase's expectations from the
+    pipelined tables: the 40 serving streams (18 at 512x768 in three
+    chunks, 6 at 768x512, 16 at 768x768 in two), the Kodak-sized
+    ``--serving`` pass (its encode chunks added), the bundle's 16 768x768
+    streams at batch 8 and its 8-image encode."""
+    import chip_smoke as cs
+
+    assert cs.batch_launches(cs.SERVE_SIZES) == (40, 168)
+    assert cs.serving_launches(cs.SERVING_SIZES) == (20, 192)
+    assert cs.batch_launches([(768, 768), (768, 768), (512, 768)]) == (
+        15, 56)
+    h, w, b = cs.BUNDLE_BUCKET
+    assert cs.pipelined_launches((h, w), cs.SERVE_SQUARE, b, b) == (20, 56)
+    assert cs.ENCODE_PER_CALL[(h, w)] == (2, 20)

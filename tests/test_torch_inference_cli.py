@@ -20,7 +20,11 @@ import numpy as np
 import pytest
 import torch
 import yaml
-from torch_port_common import fill_params, tiny_jax_model
+from torch_port_common import (  # noqa: F401  (a fixture)
+    fill_params,
+    one_torch_thread,
+    tiny_jax_model,
+)
 
 import jax
 import jax.numpy as jnp
@@ -64,16 +68,7 @@ RECON_MAX_SHARE = 1e-2
 RECON_EXACT_SHARE = 1e-3
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's CPU work at these sizes is tiny: with torch's default
-    thread pool beside the suite's other workers it spends its time
-    waiting on the pool (a port CLI run took 54 s instead of 4 under five
-    busy processes)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")

@@ -26,7 +26,13 @@ from onedc_tpu_torch.data import crops as pcrops
 from onedc_tpu_torch.train import losses as plosses
 from onedc_tpu_torch.train import step as pstep
 from onedc_tpu_torch.utils.convert import state_dict_from_jax
-from torch_port_common import TINY, port_model, tiny_jax_model, to_np
+from torch_port_common import (  # noqa: F401  (a fixture)
+    TINY,
+    one_torch_thread,
+    port_model,
+    tiny_jax_model,
+    to_np,
+)
 
 # metrics (total_loss, bpp, bpp_hard_y, grad_norm, pix): relative error
 METRIC_REL = 1e-4
@@ -73,7 +79,7 @@ def _trainable(name: str) -> bool:
 
 
 @pytest.fixture(scope="module")
-def runs():
+def runs(one_torch_thread):
     jm, params = tiny_jax_model()
     params = jax.tree.map(jnp.asarray, params)
     loss = jlosses.RDLoss(lmbda=2.0, lmbda_schedule=LMBDA_SCHEDULE,

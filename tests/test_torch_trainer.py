@@ -4,9 +4,12 @@ minutes: under ``--dist loadfile`` a file runs on one worker, so this
 test now runs beside it)."""
 
 import numpy as np
+import pytest
 import torch
 
-from torch_port_common import TINY
+from torch_port_common import TINY, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_trainer_steps_on_the_cpu():

@@ -16,6 +16,7 @@ import sys
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -36,6 +37,19 @@ GAIN = 0.5
 # by sqrt(alpha_bar(999)) ~ 0.069, which amplifies the frameworks' f32
 # differences before the VAE
 IMAGE_TOL = 2e-3
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """The port's CPU work at the tiny sizes is small: with torch's default
+    thread pool beside the suite's other workers it spends its time
+    waiting on the pool (a port CLI run took 54 s instead of 4 under five
+    busy processes, a two-step ``Trainer`` run 188 s instead of 5). A test
+    module takes it with ``pytestmark = pytest.mark.usefixtures(...)``."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def seeded_images():
