@@ -50,16 +50,30 @@
    and ``ServingEncoder`` with no model module loaded, their launches,
    rows and containers checked against the writers' plans, and the
    bundle's decodes/s.
-8. TF32 probe (printed, not a check): on a full-width f32 runtime, how many
+8. w8a8 phase (``w8a8_path``): ``OneDCRuntime(quant="w8a8")`` on the
+   serving phase's calibrated model at the default gate 512 decodes the
+   SERVE_SQUARE 768x768 streams pipelined and two of them alone: the
+   writers' y_hat bit for bit, K1/K2 launches as the exact decode's, the
+   quantized ops and int8 products per decode as W8A8_OPS gives them,
+   every image within the PSNR and correlation floors of
+   ``tests/test_quant.py`` against the exact bf16 image; per op family at
+   its largest decode shape the card's int32 accumulators against the
+   exact integer products of the same int8 operands, and a batch row
+   against its B=1 output bit for bit; the costs (per op and family w8a8
+   against bf16, the gate the per-op sums favour, one decode's wall and
+   device busy, pipelined decodes/s; per op in build/w8a8_costs.json);
+   a BUNDLE_BUCKET w8a8 bundle served by a fresh process, bit-identical
+   to the runtime's pipelined images.
+9. TF32 probe (printed, not a check): on a full-width f32 runtime, how many
    CDF indexes and symbols of a 512x768 write plan move when TF32 is on.
-9. cli path: a full-width release directory (``tests/twins.py``, F16)
+10. cli path: a full-width release directory (``tests/twins.py``, F16)
    loaded by ``eval.inference.main`` with ``checkpoint_path=``, bf16: the
    loaded weights against the twins, ``evaluate`` of the encode path's
    images as PNGs, ``--serving`` on them and on a Kodak-sized set (24
    images, after a warm pass), ``--decoder_only`` in a fresh Evaluator,
    and a TinyVAE runtime beside the large VAE's on one model (see
    ``cli_path``).
-10. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
+11. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
    overrides in ``TRAIN_OVERRIDES``, full width, f32, random seeded
    weights, seeded synthetic 1024x1024 images: two steps at 512x512
    (batch 2) and one at 768x768 (batch 1). Checks finite metrics, the
@@ -67,9 +81,9 @@
    first step (lr 0) and changed by the next, every kernel's launches per
    step, and a finite non-zero gradient on the first UNet ``attn1.to_q``
    (it arrives only through K1-bwd and K3).
-11. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
-   decode_z_only, serve, bundle, cli, train), the card line and, last,
-   the device line.
+12. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
+   decode_z_only, serve, bundle, decode_w8a8, cli, train), the card line
+   and, last, the device line.
 
 The whole run holds the numerics the package pins in its entry points
 (``onedc_tpu_torch/utils/numerics.py``).
@@ -283,6 +297,16 @@ RELEASE_PROBES = [
 # launches (K1, K2) per TinyVAE decode (the cli phase's vae=tiny run): the
 # UNet's K1 as in the large VAE's decode; the TinyVAE's convs are stock
 TINY_VAE_PER_CALL = {"768x768": (10, 0)}
+# the w8a8 phase: ops per decode that run quantized at the default gate 512,
+# by family (``nn/quant.py:family``; the full-width model's structure, held
+# by tests/test_torch_chip_smoke_tables.py against a recording pass on meta
+# tensors); the floors of tests/test_quant.py for a w8a8 image against the
+# exact bf16 one; the gates the per-op timings are summed at
+W8A8_OPS = {"conv3x3": 33, "conv3x3_s2": 2, "conv1x1": 32, "upsample": 5,
+            "dense": 114, "time_dense": 18}
+W8A8_PSNR_FLOOR = 25.0
+W8A8_CORR_FLOOR = 0.99
+W8A8_GATES = (0, 128, 320, 512, 640, 1280, 1 << 30)
 
 
 def card_line() -> str:
@@ -1294,7 +1318,9 @@ def serve_path(rt, seed: int, card: str):
     the defaults, at depth 1 and per stream), then a BUNDLE_BUCKET serving
     bundle decoded and encoded with in a fresh process
     (``serve_bundle``). Returns the K1 and K2 launches of the pipelined
-    decode ("serve") and of the bundle process ("bundle")."""
+    decode ("serve") and of the bundle process ("bundle"), and the 768x768
+    streams with their writers' y_hat and their pipelined images (for
+    ``w8a8_path``)."""
     import os
 
     from onedc_tpu_torch.ops import conv3x3 as k2
@@ -1451,21 +1477,356 @@ def serve_path(rt, seed: int, card: str):
                   "K2": res["decode_launches"][1] + res["encode_launches"][1]}
     finally:
         shutil.rmtree(tmp)
-    return launches, bundle
+    square = {"streams": [streams[i] for i in sel],
+              "plans": [plans[i] for i in sel],
+              "images": [decoded[i] for i in sel]}
+    return launches, bundle, square
+
+
+def int8_products(ops_by_family: dict) -> int:
+    """torch._int_mm calls of the quantized ops ``{family: count}``: one
+    per conv and dense, four per upsample conv (its phases)."""
+    return sum(ops_by_family.values()) + 3 * ops_by_family.get("upsample", 0)
+
+
+def image_psnr(a: torch.Tensor, b: torch.Tensor) -> float:
+    """PSNR of two [-1, 1] images (peak-to-peak 2)."""
+    mse = ((a.double() - b.double()) ** 2).mean().item()
+    return 10 * np.log10(4.0 / max(mse, 1e-20))
+
+
+def w8a8_operands_checked(rtq, module, x):
+    """``module`` on ``x`` in the w8a8 mode with every int8 product's
+    operands kept: each card accumulator (``torch._int_mm``) must equal the
+    exact integer product of the same int8 operands (``int8_matmul_plain``,
+    a float64 product on the card). Returns (the output, the number of
+    products)."""
+    from onedc_tpu_torch.ops import w8a8
+
+    seen = []
+    real = w8a8.int8_matmul
+
+    def keep(a, w):
+        out = real(a, w)
+        seen.append((a, w, out))
+        return out
+    w8a8.int8_matmul = keep
+    try:
+        y = rtq.quantized(module)(x)
+    finally:
+        w8a8.int8_matmul = real
+    for a, w, out in seen:
+        if not torch.equal(out, w8a8.int8_matmul_plain(a, w)):
+            raise AssertionError(f"int32 accumulators of {tuple(a.shape)} x "
+                                 f"{tuple(w.shape)} differ from the exact "
+                                 f"integer product")
+    return y, len(seen)
+
+
+def op_input(shape, gen):
+    """A bf16 input of a recorded op's shape on ``gen``'s device (a 4-D one
+    channels_last, as the decode's activations are)."""
+    x = torch.randn(shape, generator=gen, device=gen.device,
+                    dtype=torch.bfloat16)
+    return x.contiguous(memory_format=torch.channels_last) if x.dim() == 4 \
+        else x
+
+
+def w8a8_op_costs(rtq, ops, seed: int, gate: int):
+    """The cost of the w8a8 mode against bf16 on one decode's ops ``ops``
+    (a gate-0 recording of a 768x768 decode: every op the mode may take),
+    each op run quantized whatever its width, on a seeded input of its
+    shape: per op its wall ms (CUDA events over back-to-back calls, the
+    host's launches included as a decode pays them); per group of one
+    family and one width (min of Cin, Cout) the device-busy ms and kernel
+    launches of one pass (``torch.profiler``). Returns the rows, the
+    groups, the families' sums at ``gate``, and the decode's op sums, wall
+    and device, at each of W8A8_GATES (ops below the gate exact)."""
+    import os
+
+    from tools.profile_port_decode import profiled
+
+    modules = dict(rtq.model.named_modules())
+    gen = torch.Generator(device=rtq.device)
+    gen.manual_seed(seed)
+    rows, groups = [], {}
+    saved = os.environ.get("ONEDC_Q8_MIN_CH")
+    os.environ["ONEDC_Q8_MIN_CH"] = "0"
+    try:
+        with torch.no_grad():
+            for o in ops:
+                m, x = modules[o.path], op_input(o.shape, gen)
+                rows.append({"path": o.path, "family": o.family,
+                             "min_ch": min(o.cin, o.cout), "shape": o.shape,
+                             "w8a8_ms": cuda_ms(
+                                 lambda: rtq.quantized(m)(x), 3, 1),
+                             "bf16_ms": cuda_ms(lambda: m(x), 3, 1)})
+            for fam, ch in sorted({(r["family"], r["min_ch"]) for r in rows}):
+                sel = [(modules[o.path], op_input(o.shape, gen)) for o in ops
+                       if o.family == fam and min(o.cin, o.cout) == ch]
+                q = profiled(rtq.quantized(lambda: [m(x) for m, x in sel]))
+                e = profiled(lambda: [m(x) for m, x in sel])
+                groups[f"{fam}@{ch}"] = {
+                    "family": fam, "min_ch": ch, "ops": len(sel),
+                    "w8a8_device_ms": q["device_busy_ms"],
+                    "bf16_device_ms": e["device_busy_ms"],
+                    "w8a8_launches": q["kernel_launches"],
+                    "bf16_launches": e["kernel_launches"]}
+                del sel
+    finally:
+        if saved is None:
+            del os.environ["ONEDC_Q8_MIN_CH"]
+        else:
+            os.environ["ONEDC_Q8_MIN_CH"] = saved
+    families = {}
+    for fam in W8A8_OPS:
+        mine = [g for g in groups.values()
+                if g["family"] == fam and g["min_ch"] >= gate]
+        walls = [r for r in rows if r["family"] == fam and r["min_ch"] >= gate]
+        families[fam] = {
+            "ops": len(walls),
+            "w8a8_ms": sum(r["w8a8_ms"] for r in walls),
+            "bf16_ms": sum(r["bf16_ms"] for r in walls),
+            **{k: sum(g[k] for g in mine) for k in (
+                "w8a8_device_ms", "bf16_device_ms", "w8a8_launches",
+                "bf16_launches")}}
+    gates = {str(g): {
+        "wall_ms": sum(r["w8a8_ms"] if r["min_ch"] >= g else r["bf16_ms"]
+                       for r in rows),
+        "device_ms": sum(v["w8a8_device_ms"] if v["min_ch"] >= g
+                         else v["bf16_device_ms"] for v in groups.values())}
+        for g in W8A8_GATES}
+    return rows, groups, families, gates
+
+
+def w8a8_path(rt, square, seed: int, card: str):
+    """The w8a8 phase: ``OneDCRuntime(quant="w8a8")`` on the serving
+    phase's calibrated bf16 model, at the default gate 512, against the
+    exact runtime ``rt`` on the same SERVE_SQUARE 768x768 streams
+    (``square``: the streams, their writers' y_hat, the exact pipelined
+    images). Checks: (a) the pipelined ``decode_batch`` and two single
+    decodes carry the writers' y_hat bit for bit, with K1/K2 launches as
+    the exact decode's and the int8 products and quantized ops per family
+    as W8A8_OPS gives them; (b) every image within W8A8_PSNR_FLOOR /
+    W8A8_CORR_FLOOR of the exact one; (c) per family, at the largest shape
+    a decode gives it, the card's int32 accumulators equal the exact
+    integer products of the same int8 operands; (d) a batch row's output
+    of each such op equals its B=1 output bit for bit (the other row 100x
+    larger); (e) a BUNDLE_BUCKET w8a8 bundle in a fresh process gives the
+    runtime's pipelined images bit for bit. Prints the costs: per op and
+    family w8a8 against bf16 (ms, launches), the gate the per-op sums
+    favour, one decode's wall and device busy, pipelined decodes/s.
+    Returns the K1 and K2 launches of the pipelined decode."""
+    import os
+    from collections import Counter
+
+    from onedc_tpu_torch.models.onedc import OneDCRuntime
+    from onedc_tpu_torch.nn import quant
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.ops import w8a8
+    from onedc_tpu_torch.utils import aot
+    from tools.profile_port_decode import profiled
+
+    rtq = OneDCRuntime(rt.model, dtype=torch.bfloat16, device=rt.device,
+                       quant="w8a8")
+    streams, plans, exact = (square[k] for k in ("streams", "plans",
+                                                 "images"))
+    n = len(streams)
+    counts = (k1, k2, w8a8)
+
+    # (a) the counted pipelined run, then two traced single decodes
+    y_hats, dtypes = [], []
+    programs = rtq.decode_programs
+    rtq.decode_programs = lambda: recording(programs(), y_hats, dtypes)
+    for c in counts:
+        c.launches = 0
+    with quant.recording() as ops:
+        decoded, got = counted(counts, lambda: rtq.decode_batch(streams))
+    del rtq.decode_programs
+    launches = {"K1": got[0], "K2": got[1]}
+    want = pipelined_launches((768, 768), n)
+    chunks = -(-n // SERVING_CHUNK)
+    fams = Counter(o.family for o in ops)
+    if got[:2] != want or dict(fams) != {f: chunks * c for f, c in
+                                         W8A8_OPS.items()} \
+            or got[2] != chunks * int8_products(W8A8_OPS):
+        raise AssertionError(f"w8a8 pipelined decode_batch: K1/K2/int8 "
+                             f"{got}, quantized ops {dict(fams)}; expected "
+                             f"{want}, {chunks} x {W8A8_OPS}")
+    match_rows(y_hats, plans, "w8a8 pipelined decode_batch")
+    singles = []
+    for i in (0, 1):
+        trace = {}
+        with quant.recording() as one:
+            img, got1 = counted(counts, lambda: rtq.decode(streams[i], trace))
+        if not torch.equal(trace["y_hat"], plans[i]):
+            raise AssertionError(f"w8a8 decode {i}: y_hat differs from the "
+                                 f"writer's")
+        if dict(Counter(o.family for o in one)) != W8A8_OPS or got1 != (
+                *decode_launches(768, 768), int8_products(W8A8_OPS)):
+            raise AssertionError(f"w8a8 decode {i}: K1/K2/int8 {got1}")
+        singles.append(img)
+    print(f"w8a8: pipelined decode_batch of {n} 768x768 streams and two "
+          f"single decodes carry the writers' y_hat; K1/K2/int8 launches "
+          f"{got} (a decode {got1}); quantized ops per decode "
+          f"{json.dumps(W8A8_OPS)}", flush=True)
+
+    # (b) against the exact bf16 images
+    quality = []
+    for a, b in list(zip(decoded, exact)) + list(zip(
+            singles, [rt.decode(s) for s in streams[:2]])):
+        corr = torch.corrcoef(torch.stack([a.flatten().double(),
+                                           b.flatten().double()]))[0, 1]
+        quality.append((image_psnr(a, b), corr.item(),
+                        (a - b).abs().max().item()))
+    psnrs, corrs, maxes = zip(*quality)
+    print(f"w8a8 against the exact bf16 decode on {card} ({len(quality)} "
+          f"images): PSNR min {min(psnrs):.2f} median "
+          f"{float(np.median(psnrs)):.2f} dB (floor {W8A8_PSNR_FLOOR}), "
+          f"correlation min {min(corrs):.5f} (floor {W8A8_CORR_FLOOR}), max "
+          f"|diff| {max(maxes):.4f}", flush=True)
+    if min(psnrs) < W8A8_PSNR_FLOOR or min(corrs) <= W8A8_CORR_FLOOR:
+        raise AssertionError("w8a8 images below the quality floors")
+
+    # every op the mode may take (gate 0), for the costs
+    gate = os.environ.get("ONEDC_Q8_MIN_CH")
+    os.environ["ONEDC_Q8_MIN_CH"] = "0"
+    try:
+        with quant.recording() as all_ops:
+            gate0 = rtq.decode(streams[0])
+    finally:
+        if gate is None:
+            del os.environ["ONEDC_Q8_MIN_CH"]
+        else:
+            os.environ["ONEDC_Q8_MIN_CH"] = gate
+    print(f"w8a8 at gate 0 ({len(all_ops)} ops): PSNR "
+          f"{image_psnr(gate0, exact[0]):.2f} dB against the exact image",
+          flush=True)
+
+    # (c), (d): per family the largest op a decode gives it
+    modules = dict(rtq.model.named_modules())
+    gen = torch.Generator(device=rtq.device)
+    gen.manual_seed(seed)
+    checked = {}
+    with torch.no_grad():
+        for fam in W8A8_OPS:
+            o = max((o for o in one if o.family == fam),
+                    key=lambda o: int(np.prod(o.shape)))
+            m, x = modules[o.path], op_input(o.shape, gen)
+            y, products = w8a8_operands_checked(rtq, m, x)
+            other = op_input(o.shape, gen) * 100
+            both = rtq.quantized(m)(torch.cat([x, other]))
+            if not torch.equal(both[:x.shape[0]], y):
+                raise AssertionError(f"w8a8 {fam} ({o.path}): a batch row "
+                                     f"differs from its B=1 output")
+            checked[fam] = {"path": o.path, "shape": o.shape,
+                            "int8_products": products}
+    print(f"w8a8 ops on {card}: int32 accumulators equal the exact integer "
+          f"products and batch rows their B=1 outputs, per family at its "
+          f"largest decode shape: {json.dumps(checked)}", flush=True)
+
+    # (g) costs: per op and family, one decode, the pipelined batch
+    gate = quant.min_channels()
+    rows, groups, families, gates = w8a8_op_costs(rtq, all_ops, seed, gate)
+    best = {k: min(gates, key=lambda g: gates[g][k])
+            for k in ("wall_ms", "device_ms")}
+    print(f"w8a8 cost per family at gate {gate}, one 768x768 decode's ops, "
+          f"{card}: {json.dumps(families)}", flush=True)
+    print(f"w8a8 cost per family and width (min of Cin, Cout) on {card}: "
+          f"{json.dumps(groups)}", flush=True)
+    print(f"w8a8 sums over one decode's in-scope ops by gate (ops below it "
+          f"exact): {json.dumps(gates)}; favoured: {json.dumps(best)} (the "
+          f"default stays 512)", flush=True)
+    walls = {"bf16": [], "w8a8": []}
+    for _ in range(3):
+        for name, r in (("bf16", rt), ("w8a8", rtq)):
+            walls[name].append(_wall_ms(lambda: r.decode(streams[0])))
+    busy = {name: profiled(lambda: r.decode(streams[0]))
+            for name, r in (("bf16", rt), ("w8a8", rtq))}
+    rates_ = {"bf16": [], "w8a8": []}
+    for _ in range(2):
+        for name, r in (("bf16", rt), ("w8a8", rtq)):
+            rates_[name] += rates(lambda: r.decode_batch(streams), n, 1)
+    print(f"w8a8 one 768x768 decode on {card}: wall ms {json.dumps(walls)}; "
+          + "; ".join(f"{k}: device busy {v['device_busy_ms']:.2f} ms in a "
+                      f"{v['profiled_window_ms']:.2f} ms window, "
+                      f"{v['kernel_launches']} launches"
+                      for k, v in busy.items())
+          + f"; pipelined decodes/s on the {n} streams {json.dumps(rates_)}",
+          flush=True)
+    record = {"card": card, "families": families, "groups": groups,
+              "gates": gates, "favoured_gate": best, "checked": checked,
+              "walls_ms": walls,
+              "busy": {k: {kk: v[kk] for kk in (
+                  "device_busy_ms", "profiled_window_ms", "kernel_launches",
+                  "device_ms_by_family")} for k, v in busy.items()},
+              "pipelined_decodes_per_s": rates_,
+              "psnr_min": min(psnrs), "corr_min": min(corrs),
+              "per_op": rows}
+    out = Path(__file__).resolve().parent / "build"
+    out.mkdir(exist_ok=True)
+    (out / "w8a8_costs.json").write_text(json.dumps(record))
+
+    # (e) a w8a8 bundle served by a fresh process
+    h, w, b = BUNDLE_BUCKET
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_w8a8_bundle_"))
+    try:
+        t0 = time.perf_counter()
+        arts = aot.export_serving_bundle(rtq, h, w, batch=b)
+        export_s = time.perf_counter() - t0
+        aot.save_bundle(arts, tmp)
+        aot.save_weights(rtq, tmp / "weights.safetensors")
+        del arts
+        (tmp / "streams").mkdir()
+        for j, stream in enumerate(streams):
+            (tmp / "streams" / f"{j:02d}.bin").write_bytes(stream)
+        torch.cuda.empty_cache()
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--serve-bundle",
+             str(tmp)], capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"the w8a8 bundle process failed:\n"
+                                 f"{proc.stderr[-4000:]}")
+        res = torch.load(tmp / "result.pt", weights_only=False)
+        meta = json.loads((tmp / "meta.json").read_text())
+        if meta["quant"] != "w8a8" or res["quant"] != "w8a8" \
+                or res["model_modules"]:
+            raise AssertionError(f"w8a8 bundle: quant {meta['quant']}, "
+                                 f"model modules {res['model_modules']}")
+        if res["decode_launches"] != pipelined_launches((h, w), n, b, b) \
+                or res["int8_launches"] != got[2]:
+            raise AssertionError(f"w8a8 bundle launched K1/K2 "
+                                 f"{res['decode_launches']} and "
+                                 f"{res['int8_launches']} int8 products")
+        same = sum(torch.equal(a.to(c.device).float(),
+                               c.bfloat16().float())
+                   for a, c in zip(res["images"], decoded))
+        if same != n:
+            raise AssertionError(f"w8a8 bundle: {same} of {n} images equal "
+                                 f"the runtime's pipelined ones")
+        print(f"w8a8 bundle {h}x{w}x{b}: exported in {export_s:.1f} s; its "
+              f"{n} images equal the w8a8 runtime's pipelined ones bit for "
+              f"bit; meta quant {meta['quant']}", flush=True)
+    finally:
+        shutil.rmtree(tmp)
+    return launches
 
 
 def serve_bundle(directory: Path, card: str) -> int:
     """The bundle process (``--serve-bundle DIR``): ``ServingDecoder`` on
-    the 768x768 streams of DIR/streams and ``ServingEncoder`` on
-    DIR/encode.npy, from DIR's bundle and weights, importing no model code.
-    Writes DIR/result.pt (launches, the y_hat rows and symbol dtypes the
-    pipeline saw, the images in bf16, the containers and the encode
-    program's plans, the model modules loaded) and prints load seconds and
-    the bundle's decodes/s."""
+    the 768x768 streams of DIR/streams and, where DIR/encode.npy exists,
+    ``ServingEncoder`` on its images, from DIR's bundle and weights,
+    importing no model code. Writes DIR/result.pt (launches, the y_hat
+    rows and symbol dtypes the pipeline saw, the images in bf16, the
+    containers and the encode program's plans, the model modules loaded,
+    the int8 products of the decode and the bundle's quant mode) and prints
+    load seconds and the bundle's decodes/s."""
     from onedc_tpu_torch.ops import conv3x3 as k2
     from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.ops import w8a8
     from onedc_tpu_torch.serving.decoder import ServingDecoder
-    from onedc_tpu_torch.serving.encoder import ServingEncoder
 
     counts = (k1, k2)
     streams = [p.read_bytes()
@@ -1482,10 +1843,41 @@ def serve_bundle(directory: Path, card: str) -> int:
     dec._programs = lambda: recording(programs(), y_hats, dtypes)
     k1.launches = 0
     k2.launches = 0
+    w8a8.launches = 0
     images, decode_launches = counted(counts,
                                       lambda: dec.decode_batch(streams))
+    int8_launches = w8a8.launches
     dec._programs = programs
     bundle_rates = rates(lambda: dec.decode_batch(streams), len(streams))
+    result = {"y_hats": [y.cpu() for y in y_hats], "updates": len(dtypes),
+              "narrowed": sum(d == torch.int8 for d in dtypes),
+              "images": [im.bfloat16().cpu() for im in images],
+              "decode_launches": decode_launches,
+              "int8_launches": int8_launches,
+              "quant": dec.bundle.meta["quant"]}
+    encoded = []
+    if (directory / "encode.npy").exists():
+        encoded = bundle_encode(directory, dec, counts, result)
+    result["model_modules"] = sorted(m for m in sys.modules
+                                     if m.startswith(MODEL_MODULES))
+    torch.save(result, directory / "result.pt")
+    print(f"bundle process on {card} (quant {result['quant']}): weights "
+          f"placed in {weights_s:.1f} s, {len(dec.bundle.modules)} programs "
+          f"loaded in {load_s:.1f} s; ServingDecoder K1/K2 launches "
+          f"{decode_launches} and {int8_launches} int8 products on "
+          f"{len(streams)} streams, decodes/s {json.dumps(bundle_rates)}; "
+          f"ServingEncoder K1/K2 launches "
+          f"{result.get('encode_launches')} on {len(encoded)} images; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB", flush=True)
+    return 0
+
+
+def bundle_encode(directory: Path, dec, counts, result: dict):
+    """The bundle process's ``ServingEncoder`` on DIR/encode.npy: its
+    containers, the encode program's plans and the launches go into
+    ``result``; returns the containers."""
+    from onedc_tpu_torch.serving.encoder import ServingEncoder
 
     enc = ServingEncoder(directory, dec.bundle.weights)
     plans = []
@@ -1501,30 +1893,13 @@ def serve_bundle(directory: Path, card: str) -> int:
         return out
     enc._encode = record
     batch = np.load(directory / "encode.npy")
-    k1.launches = 0
-    k2.launches = 0
-    encoded, encode_launches = counted(
+    for c in counts:
+        c.launches = 0
+    encoded, result["encode_launches"] = counted(
         counts, lambda: enc.encode_batch([im[None] for im in batch]))
-    torch.save({
-        "decode_launches": decode_launches,
-        "encode_launches": encode_launches,
-        "y_hats": [y.cpu() for y in y_hats],
-        "updates": len(dtypes),
-        "narrowed": sum(d == torch.int8 for d in dtypes),
-        "images": [im.bfloat16().cpu() for im in images],
-        "containers": [c for c, _ in encoded],
-        "plans": plans[:len(encoded)],
-        "model_modules": sorted(m for m in sys.modules
-                                if m.startswith(MODEL_MODULES)),
-    }, directory / "result.pt")
-    print(f"bundle process on {card}: weights placed in {weights_s:.1f} s, "
-          f"{len(dec.bundle.modules)} programs loaded in {load_s:.1f} s; "
-          f"ServingDecoder K1/K2 launches {decode_launches} on "
-          f"{len(streams)} streams, decodes/s {json.dumps(bundle_rates)}; "
-          f"ServingEncoder K1/K2 launches {encode_launches} on "
-          f"{len(encoded)} images; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return 0
+    result["containers"] = [c for c, _ in encoded]
+    result["plans"] = plans[:len(encoded)]
+    return encoded
 
 
 def tf32_probe(seed: int):
@@ -2065,9 +2440,12 @@ def main():
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         t0 = time.perf_counter()
-        serve, bundle = serve_path(rt, args.seed, card)
+        serve, bundle, square = serve_path(rt, args.seed, card)
         print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
-        del rt, model
+        t0 = time.perf_counter()
+        decode_w8a8 = w8a8_path(rt, square, args.seed, card)
+        print(f"w8a8 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        del rt, model, square
         torch.cuda.empty_cache()
         tf32_probe(args.seed)
         torch.cuda.empty_cache()
@@ -2082,8 +2460,8 @@ def main():
                   "onedc_tpu/nn/attention.py:43", k1_rows + k1t_rows,
                   {"decode": decode["K1"], "encode": encode["K1"],
                    "decode_z_only": z_only["K1"], "serve": serve["K1"],
-                   "bundle": bundle["K1"], "cli": cli["K1"],
-                   "train": train["K1"]},
+                   "bundle": bundle["K1"], "decode_w8a8": decode_w8a8["K1"],
+                   "cli": cli["K1"], "train": train["K1"]},
                   "768x768"),
         summarize("flash_attention_bwd",
                   "onedc_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -2093,8 +2471,8 @@ def main():
                   "onedc_tpu/ops/pallas_conv.py:292", k2_rows + k2t_rows,
                   {"decode": decode["K2"], "encode": encode["K2"],
                    "decode_z_only": z_only["K2"], "serve": serve["K2"],
-                   "bundle": bundle["K2"], "cli": cli["K2"],
-                   "train": train["K2"]},
+                   "bundle": bundle["K2"], "decode_w8a8": decode_w8a8["K2"],
+                   "cli": cli["K2"], "train": train["K2"]},
                   "768x768"),
         summarize("conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
                   "onedc_tpu/ops/pallas_conv.py:89", k3_rows,

@@ -111,13 +111,10 @@ def build_runtime(cfg: Mapping):
     """The config's runtime: (OneDCRuntime, load seconds). The model's
     weights from ``load_params``, a TinyVAE from ``tiny_vae_ckpt`` (or
     seeded random) under ``vae=tiny``, bf16 unless ``use_bf16`` is false,
-    on the card unless ``device`` names another."""
+    on the card unless ``device`` names another; ``quant=w8a8`` decodes in
+    the w8a8 serving mode (``nn/quant.py``)."""
     quant = cfg.get("quant")
-    if quant == "w8a8":
-        raise NotImplementedError(
-            "quant=w8a8 is not ported yet (ROADMAP.md, Queue 1 item 6: "
-            "the w8a8 serving mode); run without quant=")
-    if quant is not None:
+    if quant not in (None, "w8a8"):
         raise ValueError(f"unknown quant mode {quant!r}")
     device = resolve_device(cfg.get("device"))
     t0 = time.perf_counter()
@@ -138,8 +135,8 @@ def build_runtime(cfg: Mapping):
             ensure_tiny_vae_params(model,
                                    _seeded(device, int(cfg.get("seed", 0))))
     dtype = torch.bfloat16 if cfg.get("use_bf16", True) else None
-    return OneDCRuntime(model, dtype=dtype, device=device,
-                        vae=vae_mode), load_s
+    return OneDCRuntime(model, dtype=dtype, device=device, vae=vae_mode,
+                        quant=quant), load_s
 
 
 class Evaluator:

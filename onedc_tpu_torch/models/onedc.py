@@ -17,6 +17,13 @@ encoder; ``OneDCRuntime(vae="tiny")`` selects it (JAX :234-261), and
 ``ensure_tiny_vae_params`` grafts a seeded random TinyVAE where no taesd
 weights are given (JAX :566).
 
+``OneDCRuntime(quant="w8a8")`` runs the decode programs' UNet, VAE decoder
+and TinyVAE in the w8a8 serving mode (``nn/quant.py``; JAX :234-305):
+``decode``, ``decode_batch`` (the pipelined programs too), the z-only
+decode and the exported decode programs. Encode, the four-part prior loop
+and the codec finish stay exact, so its containers and y_hat are the exact
+runtime's.
+
 ``OneDCRuntime`` runs on the card unless the caller names another device:
 with no device and no GPU it raises, it does not drop to the CPU. Its
 device arithmetic runs under ``utils.numerics.pinned_numerics``: every
@@ -35,6 +42,7 @@ import torch
 from torch import nn
 
 from ..entropy.framing import get_padding_size
+from ..nn import quant as q8
 from ..nn.diffusion import get_x0_from_noise, make_alphas_cumprod
 from ..nn.unet_sd import SD15CodecUNet
 from ..nn.vae import AutoencoderKL, TinyVaeDecoder, hwio_conv_weights
@@ -183,14 +191,18 @@ class OneDCRuntime:
     the large VAE; None takes the model's ``use_large_vae``. The choice is
     the runtime's (``use_large_vae``), not the model's: one model serves a
     runtime of each kind, as the JAX package's ``model.clone`` allows.
-    Encode always runs the large VAE encoder.
+    Encode always runs the large VAE encoder. ``quant="w8a8"`` runs the
+    decode programs' quality stages in the w8a8 mode (``quantized``); the
+    mode too is the runtime's, and one model serves both kinds.
     """
 
     def __init__(self, model: OneDC, state: Optional[Dict] = None,
                  dtype: Optional[torch.dtype] = None, device=None,
-                 vae: Optional[str] = None):
+                 vae: Optional[str] = None, quant: Optional[str] = None):
         if vae not in (None, "large", "tiny"):
             raise ValueError(f"unknown vae mode {vae!r}")
+        if quant not in (None, "w8a8"):
+            raise ValueError(f"unknown quant mode {quant!r}")
         self.use_large_vae = (model.use_large_vae if vae is None
                               else vae == "large")
         if not self.use_large_vae and not hasattr(model, "vae_tiny_dec"):
@@ -210,6 +222,14 @@ class OneDCRuntime:
         self._codec_rt = CodecRuntime(model.codec, self.device)
         self.ds = model.codec.ds
         self.z_only = model.codec.z_only
+        self.quant = quant
+        self._w8a8 = q8.w8a8_table(model) if quant == "w8a8" else None
+
+    def quantized(self, fn):
+        """``fn`` run in the runtime's quant mode: as it is when exact,
+        inside ``nn.quant.w8a8_scope`` of the model's in-scope modules for
+        w8a8. Every decode program goes through it; encode does not."""
+        return fn if self._w8a8 is None else q8.scoped(self._w8a8, fn)
 
     def set_params(self, state: Dict) -> None:
         """Swap in the weights of ``state`` (``strict=True``), as the JAX
@@ -350,7 +370,7 @@ class OneDCRuntime:
         stage_done = self._stage_clock(trace)
         z = np.concatenate([self.z_indices(d) for d in decs])
         if self.z_only:
-            image = self.model.decode_device_z_only(
+            image = self.quantized(self.model.decode_device_z_only)(
                 torch.from_numpy(z).to(self.device), self.use_large_vae)
             return nhwc(image).float()
         rt = self._codec_rt
@@ -358,11 +378,12 @@ class OneDCRuntime:
         steps = trace.setdefault("steps", []) if trace is not None else None
         y_hat, z_semantic = rt.run_four_part_decode(z, coders, steps,
                                                     stage_done)
-        x0 = self.model.decode_device_x0(y_hat, z_semantic)
+        x0 = self.quantized(self.model.decode_device_x0)(y_hat, z_semantic)
         if trace is not None:
             trace["y_hat"] = y_hat
             stage_done("finish_unet_x0")
-        image = self.model.decode_device_vae(x0, self.use_large_vae)
+        image = self.quantized(self.model.decode_device_vae)(
+            x0, self.use_large_vae)
         if trace is not None:
             stage_done("vae")
         return nhwc(image).float()
@@ -430,14 +451,16 @@ class OneDCRuntime:
     def decode_programs(self) -> DecodePrograms:
         """The staged decode as the pipelined schedule dispatches it: the
         prior programs one row at a time (``models/runtime.py``), then
-        ``decode_device_x0`` and ``decode_device_vae`` on the chunk."""
+        ``decode_device_x0`` and ``decode_device_vae`` on the chunk, in the
+        runtime's quant mode."""
         model, codec = self.model, self.model.codec
         return DecodePrograms(
             begin=lambda z: decode_begin(codec, z),
             update=[(lambda yq, m, yh, c, _s=s: decode_update(
                 codec, _s, yq, m, yh, c)) for s in range(4)],
-            x0=model.decode_device_x0,
-            vae=lambda x0: model.decode_device_vae(x0, self.use_large_vae))
+            x0=self.quantized(model.decode_device_x0),
+            vae=self.quantized(lambda x0: model.decode_device_vae(
+                x0, self.use_large_vae)))
 
     def _decode_pipelined(self, decs: List[dict], zh: int, zw: int
                           ) -> torch.Tensor:

@@ -9,6 +9,11 @@ card, so the NHWC views that the kernels take cost no copy).
 Kept from the reference, as in the JAX package: the VQGAN ``nin_shortcut``
 applies to the transformed branch, not to the residual input
 (``ResnetBlockVQ``).
+
+``Conv2d``, ``Linear`` and ``UpsampleConv2x`` are the modules that the w8a8
+serving mode may take (``nn/quant.py``), the counterparts of flax's
+``nn.Conv``, ``nn.Dense`` and the JAX ``UpsampleConv2x``; outside a w8a8
+scope they are the stock modules.
 """
 
 from __future__ import annotations
@@ -19,15 +24,37 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import quant
 
-def conv1x1(cin: int, cout: int, bias: bool = True) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 1, bias=bias)
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that a w8a8 scope runs in int8 (the conv rule)."""
+
+    w8a8_rule = "conv"
+
+    def forward(self, x):
+        y = quant.intercept(self, x)
+        return super().forward(x) if y is None else y
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that a w8a8 scope runs in int8 (the dense rule)."""
+
+    w8a8_rule = "dense"
+
+    def forward(self, x):
+        y = quant.intercept(self, x)
+        return super().forward(x) if y is None else y
+
+
+def conv1x1(cin: int, cout: int, bias: bool = True) -> Conv2d:
+    return Conv2d(cin, cout, 1, bias=bias)
 
 
 def conv3x3(cin: int, cout: int, bias: bool = True, stride: int = 1,
-            groups: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=bias,
-                     groups=groups)
+            groups: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, bias=bias,
+                  groups=groups)
 
 
 class UpsampleConv2x(nn.Conv2d):
@@ -35,13 +62,19 @@ class UpsampleConv2x(nn.Conv2d):
 
     The JAX package computes the same function as one lhs-dilated conv at
     input resolution (``nn/blocks.py:39-63``); this is its documented
-    equivalent form (``:94-98``), equal up to float reassociation.
+    equivalent form (``:94-98``), equal up to float reassociation. A w8a8
+    scope runs the lhs-dilated form in int8 (``ops/w8a8.py:w8a8_upsample``).
     """
+
+    w8a8_rule = "upsample"
 
     def __init__(self, cin: int, cout: int, bias: bool = True):
         super().__init__(cin, cout, 3, padding=1, bias=bias)
 
     def forward(self, x):
+        y = quant.intercept(self, x)
+        if y is not None:
+            return y
         return super().forward(F.interpolate(x, scale_factor=2.0,
                                              mode="nearest"))
 

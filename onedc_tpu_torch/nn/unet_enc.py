@@ -23,8 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import multi_head_attention_bnhd
-from .blocks import GroupNorm, ResnetBlockVQ, UpsampleConv2x, conv1x1, \
-    conv3x3, tokens, untokens
+from .blocks import GroupNorm, Linear, ResnetBlockVQ, UpsampleConv2x, \
+    conv1x1, conv3x3, tokens, untokens
 
 
 def sinusoidal_time_embedding(timesteps: torch.Tensor, dim: int, *,
@@ -48,8 +48,8 @@ def sinusoidal_time_embedding(timesteps: torch.Tensor, dim: int, *,
 class TimestepEmbedding(nn.Module):
     def __init__(self, in_dim: int, dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, dim)
-        self.linear_2 = nn.Linear(dim, dim)
+        self.linear_1 = Linear(in_dim, dim)
+        self.linear_2 = Linear(dim, dim)
 
     def forward(self, t_emb):
         return self.linear_2(F.silu(self.linear_1(t_emb)))
@@ -63,7 +63,7 @@ class ResnetBlock2D(nn.Module):
         super().__init__()
         self.norm1 = GroupNorm(in_ch, groups, eps)
         self.conv1 = conv3x3(in_ch, out_ch)
-        self.time_emb_proj = nn.Linear(temb_ch, out_ch)
+        self.time_emb_proj = Linear(temb_ch, out_ch)
         self.norm2 = GroupNorm(out_ch, groups, eps)
         self.conv2 = conv3x3(out_ch, out_ch)
         if in_ch != out_ch:
@@ -108,10 +108,10 @@ class SelfAttention2D(nn.Module):
         c = channels
         self.head_dim = head_dim
         self.group_norm = GroupNorm(c, groups, eps)
-        self.to_q = nn.Linear(c, c)
-        self.to_k = nn.Linear(c, c)
-        self.to_v = nn.Linear(c, c)
-        self.to_out = nn.Linear(c, c)
+        self.to_q = Linear(c, c)
+        self.to_k = Linear(c, c)
+        self.to_v = Linear(c, c)
+        self.to_out = Linear(c, c)
 
     def forward(self, x):
         b, c, h, w = x.shape

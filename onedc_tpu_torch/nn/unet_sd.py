@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import multi_head_attention_bnhd
-from .blocks import GroupNorm, conv1x1, conv3x3, tokens, untokens
+from .blocks import GroupNorm, Linear, conv1x1, conv3x3, tokens, \
+    untokens
 from .unet_enc import (
     Downsample2D,
     ResnetBlock2D,
@@ -59,10 +60,10 @@ class CrossAttention(nn.Module):
         context_dim = query_dim if context_dim is None else context_dim
         self.heads = heads
         self.head_dim = head_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out_0 = nn.Linear(inner, query_dim)
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out_0 = Linear(inner, query_dim)
 
     def forward(self, x, context=None):
         context = x if context is None else context
@@ -78,7 +79,7 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Linear(dim_in, dim_out * 2)
 
     def forward(self, x):
         h, gate = torch.chunk(self.proj(x), 2, dim=-1)
@@ -89,7 +90,7 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net_0 = GEGLU(dim, dim * mult)
-        self.net_2 = nn.Linear(dim * mult, dim)
+        self.net_2 = Linear(dim * mult, dim)
 
     def forward(self, x):
         return self.net_2(self.net_0(x))

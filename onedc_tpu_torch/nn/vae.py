@@ -27,7 +27,7 @@ from torch import nn
 
 from ..ops.conv3x3 import affine_silu_conv3x3
 from .attention import multi_head_attention
-from .blocks import GroupNorm, UpsampleConv2x, conv1x1, conv3x3
+from .blocks import GroupNorm, Linear, UpsampleConv2x, conv1x1, conv3x3
 
 
 def fused_norm_silu_conv(x: torch.Tensor, norm: GroupNorm,
@@ -56,14 +56,16 @@ def hwio_conv_weights(module: nn.Module) -> None:
 
 
 class VaeResnetBlock(nn.Module):
-    """diffusers VAE ResnetBlock2D (no time embedding)."""
+    """diffusers VAE ResnetBlock2D (no time embedding). ``conv1`` and
+    ``conv2`` hold K2's weights and never run as modules (the JAX
+    ``Conv2dParams``), so the w8a8 mode leaves them exact."""
 
     def __init__(self, in_ch: int, out_ch: int, eps: float = 1e-6):
         super().__init__()
         self.norm1 = GroupNorm(in_ch, 32, eps)
-        self.conv1 = conv3x3(in_ch, out_ch)
+        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
         self.norm2 = GroupNorm(out_ch, 32, eps)
-        self.conv2 = conv3x3(out_ch, out_ch)
+        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
         if in_ch != out_ch:
             self.conv_shortcut = conv1x1(in_ch, out_ch)
 
@@ -99,10 +101,10 @@ class VaeAttention(nn.Module):
         c = channels
         self.attn_patch = attn_patch
         self.group_norm = GroupNorm(c, 32, eps)
-        self.to_q = nn.Linear(c, c)
-        self.to_k = nn.Linear(c, c)
-        self.to_v = nn.Linear(c, c)
-        self.to_out = nn.Linear(c, c)
+        self.to_q = Linear(c, c)
+        self.to_k = Linear(c, c)
+        self.to_v = Linear(c, c)
+        self.to_out = Linear(c, c)
 
     def forward(self, x):
         _, c, h, w = x.shape

@@ -19,8 +19,9 @@ from typing import Callable, Dict
 
 import torch
 
-# registers the kernels' operators, which the programs call
-from ..ops import conv3x3, flash_attention  # noqa: F401
+# registers the kernels' and the w8a8 ops' operators, which the programs
+# call
+from ..ops import conv3x3, flash_attention, w8a8  # noqa: F401
 from ..utils.device import resolve_device
 from ..utils.safetensors import load_safetensors
 

@@ -19,9 +19,14 @@ then run the same kernels on the same strides as the runtime, which
 bit-exact CDF indexes need.
 
 The kernels K1 and K2 are the custom operators ``onedc::flash_attention``
-and ``onedc::affine_silu_conv3x3``, which pick their route when the
-program runs: an artifact launches the kernels on the card and the plain
-versions on the CPU.
+and ``onedc::affine_silu_conv3x3``, and the w8a8 mode's quantized ops the
+operators ``onedc::w8a8_conv`` / ``w8a8_dense`` / ``w8a8_upsample``
+(``ops/w8a8.py``), which pick their route when the program runs: an
+artifact launches the kernels (and the int8 products on the tensor cores)
+on the card and the plain versions on the CPU. The decode programs (x0,
+vae, decode, z-only) are traced in the runtime's quant mode
+(``OneDCRuntime.quantized``), as the JAX exporter traces them under
+``quant_methods`` (:40-52), and ``meta.json`` records the mode.
 
 Exported signatures (shapes fixed at export: one bundle per serving
 bucket, e.g. 768x768 B=8; NHWC at the prior programs' boundary as in
@@ -143,8 +148,8 @@ def export_decode(runtime, height: int, width: int, batch: int = 1
     _check_padded(height, width)
     large = runtime.use_large_vae
     return export_program(
-        runtime, lambda m, yh, zs: m.decode_device_vae(
-            m.decode_device_x0(yh, zs), large),
+        runtime, runtime.quantized(lambda m, yh, zs: m.decode_device_vae(
+            m.decode_device_x0(yh, zs), large)),
         PROGRAM_PREFIXES["x0"] + _vae_prefixes(runtime),
         _latent_shapes(runtime, height, width, batch))
 
@@ -171,7 +176,8 @@ def export_decode_z_only(runtime, height: int, width: int, batch: int = 1
                     device=runtime.device)
     large = runtime.use_large_vae
     return export_program(
-        runtime, lambda m, zi: m.decode_device_z_only(zi, large),
+        runtime, runtime.quantized(
+            lambda m, zi: m.decode_device_z_only(zi, large)),
         PROGRAM_PREFIXES["x0"] + _vae_prefixes(runtime), (z,))
 
 
@@ -240,13 +246,15 @@ def export_serving_bundle(runtime, height: int, width: int, batch: int = 8
                 runtime, step, PROGRAM_PREFIXES["update"],
                 (yq, st["means"], st["y_hat"], st["common"])))
     add("x0", lambda: export_program(
-        runtime, lambda m, yh, zs: m.decode_device_x0(yh, zs),
+        runtime, runtime.quantized(
+            lambda m, yh, zs: m.decode_device_x0(yh, zs)),
         PROGRAM_PREFIXES["x0"], (st["y_hat"], st["z_semantic"])))
     with torch.no_grad():
         x0 = model.decode_device_x0(st["y_hat"], st["z_semantic"])
     large = runtime.use_large_vae
     add("vae", lambda: export_program(
-        runtime, lambda m, x: m.decode_device_vae(x, large),
+        runtime, runtime.quantized(
+            lambda m, x: m.decode_device_vae(x, large)),
         _vae_prefixes(runtime), (x0,)))
     add("decode", lambda: export_decode(runtime, height, width, batch))
     add("encode", lambda: export_encode(runtime, height, width, batch))
@@ -260,7 +268,7 @@ def export_serving_bundle(runtime, height: int, width: int, batch: int = 8
         "dtype": str(runtime.dtype).removeprefix("torch."),
         "indexes_dtype": str(st["indexes_r"].dtype).removeprefix("torch."),
         "symbol_dtypes": ["int16", "int8"],
-        "quant": None,
+        "quant": runtime.quant,
         "vae": "large" if large else "tiny",
         "device": runtime.device.type,
         "torch": torch.__version__,
@@ -322,9 +330,6 @@ def main(argv=None):
     args, overrides = p.parse_known_args(argv)
 
     cfg = load_config(args.config, overrides)
-    if cfg.get("quant") is not None:
-        raise NotImplementedError("quant bundles wait for the w8a8 serving "
-                                  "mode (not ported)")
     h, w, b = (int(t) for t in args.bucket.split("x"))
     rt, _ = build_runtime(cfg)
     t0 = time.perf_counter()

@@ -2,8 +2,8 @@
 what the full-width model's structure launches (on meta tensors), and its
 limits on K1's row log-sum-exp (moved out of
 ``test_torch_train_step.py``, whose module fixture runs the JAX step for
-minutes, so that these run on another worker), and the launches of the
-pipelined serving schedule."""
+minutes, so that these run on another worker), the launches of the
+pipelined serving schedule, and the w8a8 phase's quantized ops."""
 
 import numpy as np
 import pytest
@@ -233,3 +233,36 @@ def test_chip_smoke_serving_tables():
     h, w, b = cs.BUNDLE_BUCKET
     assert cs.pipelined_launches((h, w), cs.SERVE_SQUARE, b, b) == (20, 56)
     assert cs.ENCODE_PER_CALL[(h, w)] == (2, 20)
+
+
+def test_chip_smoke_w8a8_tables(monkeypatch):
+    """The w8a8 phase's tables: the quantized ops per 768x768 decode by
+    family at the default gate 512 (W8A8_OPS) are what the full-width
+    model quantizes in a recording pass on meta tensors, with the int8
+    products they make (four per upsample conv); the pipelined decode of
+    the SERVE_SQUARE streams runs two x0 chunks and two VAE sub-batches,
+    so twice each, and launches K1 and K2 as the exact decode does."""
+    from collections import Counter
+
+    import chip_smoke as cs
+    from onedc_tpu_torch.models.onedc import OneDC
+    from onedc_tpu_torch.nn import quant
+
+    monkeypatch.delenv("ONEDC_Q8_MIN_CH", raising=False)
+    monkeypatch.delenv("ONEDC_Q8_UPSAMPLE", raising=False)
+    with torch.device("meta"):
+        model = OneDC()
+    c = model.codec.y_spatial_prior_reduction.out_channels
+    s = model.codec.hyper_dec.feat_in.out_channels
+    with torch.no_grad(), quant.recording() as ops, \
+            quant.w8a8_scope(quant.w8a8_table(model)):
+        image = model.decode_device_vae(model.decode_device_x0(
+            torch.empty((1, 48, 48, c), device="meta"),
+            torch.empty((1, 12, 12, s), device="meta")))
+    assert image.shape == (1, 3, 768, 768)
+    assert dict(Counter(o.family for o in ops)) == cs.W8A8_OPS
+    assert all(min(o.cin, o.cout) >= 512 for o in ops)
+    assert cs.int8_products(cs.W8A8_OPS) == len(ops) + 3 * sum(
+        o.family == "upsample" for o in ops)
+    assert -(-cs.SERVE_SQUARE // cs.SERVING_CHUNK) == 2
+    assert cs.pipelined_launches((768, 768), cs.SERVE_SQUARE) == (20, 56)

@@ -273,14 +273,62 @@ def test_caption_rides_the_container(cli):
 
 @pytest.mark.parametrize("fault", ["both_sources", "w8a8"])
 def test_config_faults_raise(cli, fault):
+    """Both weight sources at once, and an unknown quant mode (the case
+    named w8a8 held the refusal of ``quant=w8a8`` before the mode was
+    ported; ``test_w8a8_cli_matches_the_jax_clis`` runs it now)."""
     root, cfg = cli
     cfg = dict(cfg, device="cpu", output_path=str(root / "faults"))
     if fault == "both_sources":
         with pytest.raises(ValueError, match="ambiguous"):
             Evaluator(dict(cfg, checkpoint_path=str(root)))
     else:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            Evaluator(dict(cfg, quant="w8a8"))
+        with pytest.raises(ValueError, match="unknown quant mode"):
+            Evaluator(dict(cfg, quant="w4a4"))
+
+
+def _psnr_levels(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b) ** 2)
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def test_w8a8_cli_matches_the_jax_clis(cli, monkeypatch):
+    """``quant=w8a8`` (both gates at 0: the tiny widths sit below 512)
+    writes the exact CLI's ``.bin`` files, and recon PNGs held to the JAX
+    CLI's under ``quant=w8a8`` as ``tests/test_torch_w8a8.py`` holds a
+    w8a8 decode: a whole w8a8 decode is no bit-level function of its
+    input (a one-ulp difference before a quantize moves a value by a whole
+    int8 level, and over the decode's quantized ops such steps grow to the
+    quantization noise), so the two w8a8 PNGs lie about as far apart as
+    the w8a8 PNG from the exact one: PSNR to JAX's at most 3 dB under PSNR
+    to the exact PNG, both above 25 dB (the floor of
+    ``tests/test_quant.py``), and the w8a8 PNG not the exact one."""
+    import onedc_tpu.nn.quant as jq
+
+    root, cfg = cli
+    name = NAMES[0]  # the 64x64 image: one padded size, one JAX compile
+    (root / "imgs_w8a8").mkdir()
+    shutil.copy(root / "imgs" / f"{name}.png", root / "imgs_w8a8")
+    cfg = dict(cfg, quant="w8a8", dataset_path=str(root / "imgs_w8a8"))
+    monkeypatch.setattr(jq, "_Q8_MIN_CH", 0)
+    monkeypatch.setenv("ONEDC_Q8_MIN_CH", "0")
+    with monkeypatch.context() as mp:
+        mp.setattr(jinference, "load_params",
+                   lambda model, c: jax_load(c["ckpt"]))
+        jinference.Evaluator(Config.wrap(dict(
+            cfg, output_path=str(root / "jax_w8a8")))).evaluate()
+    main(["--config", str(root / "port.yaml"), "quant=w8a8",
+          f"dataset_path={root / 'imgs_w8a8'}",
+          f"output_path={root / 'port_w8a8'}"])
+    assert (root / "port_w8a8" / "bin" / f"{name}.bin").read_bytes() == \
+        (root / "port" / "bin" / f"{name}.bin").read_bytes()
+    png = {run: _png(root / run / "recon" / f"{name}.png").astype(int)
+           for run in ("port_w8a8", "jax_w8a8", "port")}
+    to_jax = _psnr_levels(png["port_w8a8"], png["jax_w8a8"])
+    to_exact = _psnr_levels(png["port_w8a8"], png["port"])
+    print(f"{name}: w8a8 PNG to the JAX CLI's w8a8 PNG {to_jax:.2f} dB, to "
+          f"the exact PNG {to_exact:.2f} dB")
+    assert to_jax >= to_exact - 3.0 and min(to_jax, to_exact) > 25.0
+    assert not np.array_equal(png["port_w8a8"], png["port"])
 
 
 def test_tiny_vae_decoder_matches_jax():
