@@ -66,24 +66,37 @@
    to the runtime's pipelined images.
 9. TF32 probe (printed, not a check): on a full-width f32 runtime, how many
    CDF indexes and symbols of a 512x768 write plan move when TF32 is on.
-10. cli path: a full-width release directory (``tests/twins.py``, F16)
-   loaded by ``eval.inference.main`` with ``checkpoint_path=``, bf16: the
+10. cli path: a full-width release directory (``tests/twins.py``, F16,
+   written once for this phase and the next) loaded by
+   ``eval.inference.main`` with ``checkpoint_path=``, bf16: the
    loaded weights against the twins, ``evaluate`` of the encode path's
    images as PNGs, ``--serving`` on them and on a Kodak-sized set (24
    images, after a warm pass), ``--decoder_only`` in a fresh Evaluator,
    and a TinyVAE runtime beside the large VAE's on one model (see
    ``cli_path``).
-11. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
-   overrides in ``TRAIN_OVERRIDES``, full width, f32, random seeded
-   weights, seeded synthetic 1024x1024 images: two steps at 512x512
-   (batch 2) and one at 768x768 (batch 1). Checks finite metrics, the
-   frozen VAE bit-identical, the trainable parameters unchanged by the
-   first step (lr 0) and changed by the next, every kernel's launches per
-   step, and a finite non-zero gradient on the first UNet ``attn1.to_q``
-   (it arrives only through K1-bwd and K3).
-12. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
-   decode_z_only, serve, bundle, decode_w8a8, cli, train), the card line
-   and, last, the device line.
+11. Quality path (``quality_path``): ``eval.rd_sweep.main`` on
+   ``configs/rd_sweep.yaml`` with two points on the same release, the
+   lambda model and the z-only exlow one, over a Kodak-sized set of PNGs,
+   with seeded random LPIPS, DISTS and InceptionV3 files written by the
+   port's converters: ``rd_curve.csv`` sorted by bpp with every metric
+   finite, the sweep's launches, and on two source/recon pairs the card's
+   PSNR / MS-SSIM against numpy f64 and its LPIPS, DISTS and Inception
+   features and logits against the same modules on the CPU (the QUALITY_*
+   limits); the metric nets' rates, the host ``sqrtm`` seconds, walls and
+   peak memory.
+12. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
+   overrides in ``TRAIN_OVERRIDES`` and a seeded random LPIPS file
+   (``train_overrides``), full width, f32, random seeded weights, seeded
+   synthetic 1024x1024 images: two steps at 512x512 (batch 2) and one at
+   768x768 (batch 1). Checks finite metrics, the LPIPS term finite and
+   > 0, the frozen VAE and the loss's VGG bit-identical, the trainable
+   parameters unchanged by the first step (lr 0) and changed by the next,
+   every kernel's launches per step (the VGG's convs are stock: no K1-K3),
+   and a finite non-zero gradient on the first UNet ``attn1.to_q`` (it
+   arrives only through K1-bwd and K3).
+13. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
+   decode_z_only, serve, bundle, decode_w8a8, cli, quality, train), the
+   card line and, last, the device line.
 
 The whole run holds the numerics the package pins in its entry points
 (``onedc_tpu_torch/utils/numerics.py``).
@@ -94,6 +107,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import gc
 import json
 import shutil
 import subprocess
@@ -256,12 +270,13 @@ K2_BWD_SHAPES = [(2, 64, 64, 512, 512), (2, 128, 128, 512, 512),
                  (2, 256, 256, 256, 256), (2, 512, 512, 128, 128)]
 # launches per training step: (K1, K1-bwd, K2, K3)
 TRAIN_PER_STEP = {512: (5, 5, 48, 28), 768: (12, 12, 48, 28)}
-# configs/train_stage1.yaml with these overrides (dotted keys)
+# configs/train_stage1.yaml with these overrides (dotted keys); the phase
+# adds ``lpips_weights``, a file of seeded random LPIPS weights that it
+# writes (``nn/lpips.py:random_lpips_weights``)
 TRAIN_OVERRIDES = {"optimizer": "adamw", "fsdp": False,
                    "model.use_codeformer": False, "frozen": ["vae"],
-                   "allow_no_lpips": True, "batch_size": 2,
-                   "resolutions": [512, 768], "batch_scales": [1.0, 0.5],
-                   "warmup_steps": 2}
+                   "batch_size": 2, "resolutions": [512, 768],
+                   "batch_scales": [1.0, 0.5], "warmup_steps": 2}
 FIRST_ATTN1 = ("unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1."
                "to_q.weight")
 # the cli phase's Kodak-sized serving set: 24 images, 18 landscape (512x768)
@@ -307,6 +322,17 @@ W8A8_OPS = {"conv3x3": 33, "conv3x3_s2": 2, "conv1x1": 32, "upsample": 5,
 W8A8_PSNR_FLOOR = 25.0
 W8A8_CORR_FLOOR = 0.99
 W8A8_GATES = (0, 128, 320, 512, 640, 1280, 1 << 30)
+# the quality phase's limits, the card's f32 metrics (TF32 off) against
+# their plain references on the same PNGs: PSNR (dB) and MS-SSIM against
+# numpy f64 (f32 sums over a 512x768 image, and MS-SSIM's variances as
+# differences of blurred means); LPIPS and DISTS relative to the CPU's f32
+# distance (floored at 1e-2), features and logits relative to the CPU's
+# largest value (cuDNN's f32 algorithms sum in other orders than the CPU's
+# through 13 VGG and 94 Inception convolutions)
+QUALITY_PSNR_TOL = 1e-3
+QUALITY_SSIM_TOL = 1e-4
+QUALITY_DIST_TOL = 1e-3
+QUALITY_FEAT_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -2110,10 +2136,11 @@ def serve_kodak_sized(ev, rt, tmp: Path, seed: int, counts):
     return rates
 
 
-def cli_path(seed: int):
+def cli_path(seed: int, release: Path, nbytes: int, probes: dict):
     """The cli phase: ``eval.inference.main`` on the full-width release
-    layout (``write_release``, through ``checkpoint_path=``, no
-    ``vae_ckpt``: the VAE stays seeded random) and PNGs of ENCODE_SIZES,
+    layout (``release``, from ``write_release``: ``nbytes`` bytes, its
+    ``probes``; through ``checkpoint_path=``, no ``vae_ckpt``: the VAE
+    stays seeded random) and PNGs of ENCODE_SIZES,
     in bf16. The loaded model holds the release's tensors
     (``check_release_loaded``); every ``.bin`` decodes to its writer's
     plan bit for bit, with the launches of the tables; ``--serving``
@@ -2138,11 +2165,6 @@ def cli_path(seed: int):
     counts = (k1, k2)
     tmp = Path(tempfile.mkdtemp(prefix="onedc_cli_"))
     try:
-        release = tmp / "release"
-        release.mkdir()
-        gen_s, write_s, nbytes, probes = write_release(release)
-        print(f"cli: full-layout twins generated in {gen_s:.2f} s; written "
-              f"in F16 in {write_s:.2f} s, {nbytes / 1e9:.3f} GB", flush=True)
         (tmp / "imgs").mkdir()
         names = []
         for i, ((h, w), im) in enumerate(zip(ENCODE_SIZES,
@@ -2273,6 +2295,240 @@ def cli_path(seed: int):
     return launches
 
 
+def quality_launches(sizes, points: int = 2):
+    """(K1, K2) launches of an RD sweep of ``points`` points over images
+    of ``sizes``: per image one ``encode`` and one ``decode`` (the z-only
+    model's programs launch as the lambda model's)."""
+    per_point = [sum(ENCODE_PER_CALL[padded_size(h, w)][i]
+                     + decode_launches(h, w)[i] for h, w in sizes)
+                 for i in (0, 1)]
+    return tuple(points * n for n in per_point)
+
+
+def quality_reference_f64(x: np.ndarray, y: np.ndarray):
+    """(PSNR, MS-SSIM) of two (H, W, 3) images in [0, 1], in numpy f64:
+    the plain reference of ``eval/metrics.py`` from the same definitions
+    (an 11-tap Gaussian of sigma 1.5, separable, valid padding; K1 0.01,
+    K2 0.03; five scales, 2x2 average pooling between them)."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    psnr = 10 * np.log10(1.0 / max(float(np.mean((x - y) ** 2)), 1e-12))
+    g = np.exp(-(np.arange(11) - 5.0) ** 2 / (2 * 1.5 ** 2))
+    g /= g.sum()
+
+    def blur(a):
+        a = sliding_window_view(a, 11, axis=0) @ g
+        return sliding_window_view(a, 11, axis=1) @ g
+
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    weights = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
+    value = 1.0
+    for i, w in enumerate(weights):
+        mx, my = blur(x), blur(y)
+        sxx, syy = blur(x * x) - mx ** 2, blur(y * y) - my ** 2
+        sxy = blur(x * y) - mx * my
+        cs = (2 * sxy + c2) / (sxx + syy + c2)
+        if i < len(weights) - 1:
+            value *= max(float(cs.mean()), 0.0) ** w
+            h, wd = x.shape[0] // 2, x.shape[1] // 2
+            x = x[:2 * h, :2 * wd].reshape(h, 2, wd, 2, 3).mean((1, 3))
+            y = y[:2 * h, :2 * wd].reshape(h, 2, wd, 2, 3).mean((1, 3))
+        else:
+            ssim = ((2 * mx * my + c1) / (mx ** 2 + my ** 2 + c1)) * cs
+            value *= max(float(ssim.mean()), 0.0) ** w
+    return psnr, value
+
+
+def _timed(fn, log: list):
+    """``fn`` whose every call appends its host seconds to ``log``."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log.append(time.perf_counter() - t0)
+    return wrapper
+
+
+def quality_path(seed: int, release: Path, card: str):
+    """The quality phase: ``eval.rd_sweep.main`` on configs/rd_sweep.yaml
+    with two points on the cli phase's release (``checkpoint_path=``,
+    bf16): ``lmbda`` and ``exlow`` (``model: {z_only: true}``), over the
+    Kodak-sized set (SERVING_SIZES) as PNGs, with seeded random LPIPS,
+    DISTS and InceptionV3 (1008 classes) files written through the port's
+    converters and writer. ``rd_curve.csv`` must hold both points sorted
+    by bpp (exlow's below lmbda's, its y rate 0) with every metric finite;
+    the sweep's K1 / K2 launches are ``quality_launches``. On two
+    source/recon pairs of the lmbda point the card's metrics are held
+    against plain references: PSNR and MS-SSIM against numpy f64
+    (``quality_reference_f64``), LPIPS, DISTS and the Inception features
+    and logits of the recon's patches against the same port modules on
+    the CPU in f32; LPIPS(x, x) is 0. Prints the metric nets' rates on the
+    card, the host ``sqrtm`` seconds, each point's walls and the peak
+    memory. Returns the K1 and K2 launches of the sweep."""
+    from onedc_tpu_torch.data.images import load_image, save_image
+    from onedc_tpu_torch.eval import metrics, rd_sweep
+    from onedc_tpu_torch.nn import dists, inception, lpips
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.utils.safetensors import save_safetensors
+
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_quality_"))
+    try:
+        folder = tmp / "kodak"
+        folder.mkdir()
+        batch = next(synthetic_batches(seed + 2, len(SERVING_SIZES), 768))
+        names = [f"kodim{i + 1:02d}" for i in range(len(SERVING_SIZES))]
+        for name, im, (h, w) in zip(names, batch["image"], SERVING_SIZES):
+            save_image(im[:h, :w], folder / f"{name}.png")
+        paths = {}
+        for net, flat in (("lpips", lpips.random_lpips_weights(seed)),
+                          ("dists", dists.random_dists_weights(seed)),
+                          ("inception", inception.random_inception_weights(
+                              seed, num_classes=1008))):
+            paths[net] = tmp / f"{net}.safetensors"
+            save_safetensors(flat, paths[net])
+
+        sqrtm_s, point_s, metric_s = [], [], []
+        wrapped = {(metrics, "frechet_distance"): sqrtm_s,
+                   (rd_sweep, "run_point"): point_s,
+                   (rd_sweep, "test_two_folders"): metric_s}
+        originals = {key: getattr(*key) for key in wrapped}
+        for (mod, attr), log in wrapped.items():
+            setattr(mod, attr, _timed(getattr(mod, attr), log))
+        k1.launches = 0
+        k2.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            rows = rd_sweep.main([
+                "--config", "configs/rd_sweep.yaml",
+                f"dataset_path={folder}", f"output_path={tmp / 'sweep'}",
+                f"checkpoint_path={release}", f"seed={seed}",
+                f"lpips_weights={paths['lpips']}",
+                f"dists_weights={paths['dists']}",
+                f"inception_weights={paths['inception']}",
+                "points=[{name: lmbda}, {name: exlow, model: {z_only: "
+                "true}}]"])
+            torch.cuda.synchronize()
+        finally:
+            for key, fn in originals.items():
+                setattr(*key, fn)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {"K1": k1.launches, "K2": k2.launches}
+        want = quality_launches(SERVING_SIZES)
+        walls = list(zip(point_s, metric_s))
+        print(f"quality: rd_sweep of 2 points x {len(names)} images launched "
+              f"K1/K2 {tuple(launches.values())}, expected {want}; per point "
+              f"(encode + decode s, metrics s) {json.dumps(walls)}; host "
+              f"sqrtm s {json.dumps(sqrtm_s)}; peak {peak:.2f} GiB",
+              flush=True)
+        if tuple(launches.values()) != want:
+            raise AssertionError("the sweep's launches differ from the "
+                                 "tables")
+
+        with open(tmp / "sweep" / "rd_curve.csv", newline="") as f:
+            curve = list(csv.DictReader(f))
+        cols = ("bpp", "bpp_y", "psnr", "ms_ssim", "lpips", "dists",
+                "patch_fid", "patch_kid", "inception_mean")
+        print("quality: rd_curve.csv " + json.dumps(
+            [{k: r[k] for k in ("name",) + cols} for r in curve]), flush=True)
+        if [r["name"] for r in curve] != ["exlow", "lmbda"] or len(rows) != 2:
+            raise AssertionError("rd_curve.csv does not hold exlow then "
+                                 "lmbda")
+        if not float(curve[0]["bpp"]) < float(curve[1]["bpp"]) \
+                or float(curve[0]["bpp_y"]) != 0.0:
+            raise AssertionError("exlow's rate is not below lmbda's, or it "
+                                 "wrote y bits")
+        bad = [(r["name"], k) for r in curve for k in cols
+               if not np.isfinite(float(r[k]))]
+        if bad:
+            raise AssertionError(f"rd_curve.csv: not finite {bad}")
+
+        # the card against plain references on two pairs of the lmbda point
+        card_fns = (lpips.make_lpips_fn(paths["lpips"]),
+                    dists.make_dists_fn(paths["dists"]))
+        cpu_fns = (lpips.make_lpips_fn(paths["lpips"], device="cpu"),
+                   dists.make_dists_fn(paths["dists"], device="cpu"))
+        card_inc = inception.make_inception_fn(paths["inception"])
+        cpu_inc = inception.make_inception_fn(paths["inception"],
+                                              device="cpu")
+        recon = tmp / "sweep" / "lmbda" / "recon"
+        worst = {"psnr_db": 0.0, "ms_ssim": 0.0, "lpips": 0.0, "dists": 0.0,
+                 "features": 0.0, "logits": 0.0}
+        # a landscape and a portrait image
+        pairs = [names[0], names[next(i for i, size in enumerate(
+            SERVING_SIZES) if size != SERVING_SIZES[0])]]
+        for name in pairs:
+            x = load_image(folder / f"{name}.png") * 0.5 + 0.5
+            y = load_image(recon / f"{name}.png") * 0.5 + 0.5
+            xb = torch.from_numpy(x)[None].cuda()
+            yb = torch.from_numpy(y)[None].cuda()
+            with torch.no_grad():
+                got = (float(metrics.psnr(xb, yb)[0]),
+                       float(metrics.ms_ssim(xb, yb)[0]))
+                ref = quality_reference_f64(x, y)
+                worst["psnr_db"] = max(worst["psnr_db"],
+                                       abs(got[0] - ref[0]))
+                worst["ms_ssim"] = max(worst["ms_ssim"],
+                                       abs(got[1] - ref[1]))
+                for key, card_fn, cpu_fn in zip(("lpips", "dists"), card_fns,
+                                                cpu_fns):
+                    a = float(card_fn(xb, yb)[0])
+                    b = float(cpu_fn(x[None], y[None])[0])
+                    worst[key] = max(worst[key], abs(a - b) / max(abs(b),
+                                                                  1e-2))
+                same = float(card_fns[0](xb, xb)[0])
+            if abs(same) > 1e-6:
+                raise AssertionError(f"quality {name}: LPIPS(x, x) = {same}")
+            patches = metrics.to_uint8_range(np.stack(
+                metrics.extract_patches(y * 2 - 1, 256)
+                + metrics.extract_patches(y * 2 - 1, 256, True)) * 0.5 + 0.5)
+            a, b = card_inc(patches), cpu_inc(patches)
+            for key in ("features", "logits"):
+                worst[key] = max(worst[key], float(
+                    np.abs(a[key] - b[key]).max() / np.abs(b[key]).max()))
+        print(f"quality: the card against plain references on {pairs} "
+              f"(worst of the two): " + json.dumps(worst), flush=True)
+        limits = {"psnr_db": QUALITY_PSNR_TOL, "ms_ssim": QUALITY_SSIM_TOL,
+                  "lpips": QUALITY_DIST_TOL, "dists": QUALITY_DIST_TOL,
+                  "features": QUALITY_FEAT_TOL, "logits": QUALITY_FEAT_TOL}
+        over = {k: v for k, v in worst.items() if not v <= limits[k]}
+        if over:
+            raise AssertionError(f"quality: the card's metrics differ from "
+                                 f"the references by {over} (limits "
+                                 f"{limits})")
+
+        # the metric nets' rates on the card, one pair per call (as the
+        # harness calls them), after a warm call
+        xs = [torch.from_numpy(load_image(folder / f"{n}.png") * 0.5
+                               + 0.5)[None].cuda() for n in names]
+        ys = [torch.from_numpy(load_image(recon / f"{n}.png") * 0.5
+                               + 0.5)[None].cuda() for n in names]
+        rates = {}
+        with torch.no_grad():
+            for key, fn in zip(("lpips", "dists"), card_fns):
+                fn(xs[0], ys[0])
+                rates[f"{key}_images_per_s"] = len(names) / (_wall_ms(
+                    lambda: [fn(a, b) for a, b in zip(xs, ys)]) / 1e3)
+        patches = metrics.to_uint8_range(np.stack([
+            p for n in names for shifted in (False, True)
+            for p in metrics.extract_patches(
+                load_image(recon / f"{n}.png"), 256, shifted)]) * 0.5 + 0.5)
+        card_inc(patches[:32])
+        rates["inception_patches_per_s"] = len(patches) / (_wall_ms(
+            lambda: card_inc(patches)) / 1e3)
+        print(f"quality rates ({card}; {len(names)} images of "
+              f"{SERVING_SIZES[0][0]}x{SERVING_SIZES[0][1]} or transposed, "
+              f"{len(patches)} patches of 256x256): " + json.dumps(rates),
+              flush=True)
+        del card_fns, cpu_fns, card_inc, cpu_inc, xs, ys
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp)
+    return launches
+
+
 def _wall_ms(fn) -> float:
     """Host ms of ``fn()`` to a synchronised device."""
     t0 = time.perf_counter()
@@ -2292,20 +2548,35 @@ def synthetic_batches(seed: int, batch: int, size: int = 1024):
         yield {"image": img.astype(np.float32)}
 
 
+def train_overrides(lpips_weights) -> dict:
+    """TRAIN_OVERRIDES with the LPIPS file the phase wrote."""
+    return dict(TRAIN_OVERRIDES, lpips_weights=str(lpips_weights))
+
+
 def train_path(seed: int):
     """The training phase: steps of ``Trainer.train_one_step`` at full
-    width; returns each kernel's launches over the phase."""
+    width, with LPIPS in the loss (seeded random weights); returns each
+    kernel's launches over the phase and the steps' records."""
     from onedc_tpu_torch.config import load_config
+    from onedc_tpu_torch.nn.lpips import random_lpips_weights
     from onedc_tpu_torch.ops import conv3x3 as k2
     from onedc_tpu_torch.ops import flash_attention as k1
     from onedc_tpu_torch.train.step import split_frozen, warmup_constant_lr
     from onedc_tpu_torch.train.trainer import Trainer
+    from onedc_tpu_torch.utils.safetensors import save_safetensors
 
-    for key, value in TRAIN_OVERRIDES.items():
-        print(f"train override: {key} = {value!r}", flush=True)
-    cfg = load_config("configs/train_stage1.yaml", TRAIN_OVERRIDES)
-    trainer = Trainer(cfg, device="cuda",
-                      batches=synthetic_batches(seed, cfg["batch_size"]))
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_train_"))
+    try:
+        save_safetensors(random_lpips_weights(seed), tmp / "lpips.safetensors")
+        overrides = train_overrides(tmp / "lpips.safetensors")
+        for key, value in overrides.items():
+            print(f"train override: {key} = {value!r}", flush=True)
+        cfg = load_config("configs/train_stage1.yaml", overrides)
+        trainer = Trainer(cfg, device="cuda",
+                          batches=synthetic_batches(seed, cfg["batch_size"]))
+    finally:
+        shutil.rmtree(tmp)
+    vgg_before = [p.detach().clone() for p in trainer.lpips.parameters()]
     model = trainer.model
     init_random_weights(model, seed)
     n_params = sum(p.numel() for p in model.parameters())
@@ -2349,6 +2620,9 @@ def train_path(seed: int):
         for key in ("total_loss", "pix", "bpp", "bpp_hard_y", "grad_norm"):
             if not np.isfinite(metrics[key]):
                 raise AssertionError(f"step {step}: {key} {metrics[key]}")
+        for key in ("lpips", "weighted_lpips"):
+            if not (np.isfinite(metrics[key]) and metrics[key] > 0):
+                raise AssertionError(f"step {step}: {key} {metrics[key]}")
         grad = dict(model.named_parameters())[FIRST_ATTN1].grad
         gnorm = grad.norm().item()
         print(f"  |grad {FIRST_ATTN1}| = {gnorm:.4e}", flush=True)
@@ -2379,6 +2653,11 @@ def train_path(seed: int):
                                                    model.vae.parameters())):
         raise AssertionError("a frozen VAE parameter changed")
     print(f"VAE: all {len(vae_before)} parameters bit-identical after "
+          f"{len(steps)} steps", flush=True)
+    vgg_after = trainer.lpips.parameters()
+    if not all(torch.equal(a, p) for a, p in zip(vgg_before, vgg_after)):
+        raise AssertionError("an LPIPS parameter changed")
+    print(f"LPIPS: all {len(vgg_before)} parameters bit-identical after "
           f"{len(steps)} steps", flush=True)
     return {"K1": k1.launches, "K1-bwd": k1.bwd_launches,
             "K2": k2.launches, "K3": k2.conv_launches}, records
@@ -2449,9 +2728,27 @@ def main():
         torch.cuda.empty_cache()
         tf32_probe(args.seed)
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        cli = cli_path(args.seed)
-        print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        # the release that the cli and quality phases load
+        release = Path(tempfile.mkdtemp(prefix="onedc_release_"))
+        try:
+            gen_s, write_s, nbytes, probes = write_release(release)
+            print(f"cli: full-layout twins generated in {gen_s:.2f} s; "
+                  f"written in F16 in {write_s:.2f} s, {nbytes / 1e9:.3f} GB",
+                  flush=True)
+            t0 = time.perf_counter()
+            cli = cli_path(args.seed, release, nbytes, probes)
+            del probes
+            print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            quality = quality_path(args.seed, release, card)
+            print(f"quality phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+        finally:
+            shutil.rmtree(release)
+        # the cli and quality phases' runtimes, before the training phase
+        # reads its peak memory
+        gc.collect()
+        torch.cuda.empty_cache()
         train, records = train_path(args.seed)
 
     kernels = [
@@ -2461,7 +2758,8 @@ def main():
                   {"decode": decode["K1"], "encode": encode["K1"],
                    "decode_z_only": z_only["K1"], "serve": serve["K1"],
                    "bundle": bundle["K1"], "decode_w8a8": decode_w8a8["K1"],
-                   "cli": cli["K1"], "train": train["K1"]},
+                   "cli": cli["K1"], "quality": quality["K1"],
+                   "train": train["K1"]},
                   "768x768"),
         summarize("flash_attention_bwd",
                   "onedc_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -2472,7 +2770,8 @@ def main():
                   {"decode": decode["K2"], "encode": encode["K2"],
                    "decode_z_only": z_only["K2"], "serve": serve["K2"],
                    "bundle": bundle["K2"], "decode_w8a8": decode_w8a8["K2"],
-                   "cli": cli["K2"], "train": train["K2"]},
+                   "cli": cli["K2"], "quality": quality["K2"],
+                   "train": train["K2"]},
                   "768x768"),
         summarize("conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
                   "onedc_tpu/ops/pallas_conv.py:89", k3_rows,

@@ -1,1 +1,2 @@
-"""Evaluation entry points: the inference CLI."""
+"""Evaluation entry points: the inference CLI, the quality harness and the
+RD sweep."""

@@ -32,7 +32,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import csv
 import json
 import os
 import time
@@ -53,7 +52,7 @@ from ..models.onedc import (
 )
 from ..nn.vae import TinyVaeDecoder
 from ..utils.convert import state_dict_from_safetensors
-from ..utils.logging import AvgDict, get_logger
+from ..utils.logging import AvgDict, get_logger, write_csv
 from ..utils.port_torch import port_onedc_checkpoint
 
 log = get_logger("onedc_tpu_torch.inference")
@@ -256,16 +255,8 @@ class Evaluator:
                      self.out_dir / "recon" / f"{b.stem}.png")
 
     def _write_reports(self, rows: List[Dict], summary: Dict[str, float]):
-        columns: List[str] = []  # pandas' order: first appearance
-        for row in rows:
-            columns += [k for k in row if k not in columns]
-        for name, table, cols in (("bpp_detail.csv", rows, columns),
-                                  ("bpp_summary.csv", [summary],
-                                   list(summary))):
-            with open(self.out_dir / name, "w", newline="") as f:
-                writer = csv.DictWriter(f, fieldnames=cols)
-                writer.writeheader()
-                writer.writerows(table)
+        write_csv(self.out_dir / "bpp_detail.csv", rows)
+        write_csv(self.out_dir / "bpp_summary.csv", [summary])
         log.info("summary: %s", {k: round(v, 5) for k, v in summary.items()})
 
 

@@ -7,7 +7,8 @@ JAX counterpart: ``onedc_tpu/train/trainer.py:93-246`` (``Trainer``,
 ``lmbda_schedule``, ``pix_weight``, ``lpips_weight``, ``pix_loss_type``,
 ``lpips_weights`` / ``allow_no_lpips``, ``batch_size``, ``resolutions``,
 ``batch_scales``, ``seed``, ``optimizer``, ``fsdp``, ``grad_accum`` and
-``model``.
+``model``. ``lpips_weights``: a converted LPIPS file (``nn/lpips.py``),
+the avg-pool VGG of the reference's loss, held frozen beside the model.
 
 Differences, by design or not yet ported:
 - batches come from an iterator of numpy ``{"image": (B, H, W, 3)}`` in
@@ -35,6 +36,7 @@ import torch
 
 from ..data.crops import MultiResolutionCrop, random_crop
 from ..models.onedc import OneDC, resolve_device
+from ..nn.lpips import load_lpips, nhwc_metric
 from ..nn.vae import hwio_conv_weights
 from ..utils.numerics import pinned
 from .losses import RDLoss
@@ -50,20 +52,25 @@ class Trainer:
         ``seed``. ``batches``: an iterable of numpy batches (see the module
         docstring)."""
         self.cfg = cfg
-        if cfg.get("lpips_weights"):
-            raise NotImplementedError("LPIPS is not ported yet: train with "
-                                      "allow_no_lpips: true")
-        if not cfg.get("allow_no_lpips", False):
-            raise ValueError(
-                "no lpips_weights configured. The reference stage-1 loss is "
-                "L1 + LPIPS + lambda*bpp; training without LPIPS changes the "
-                "objective. Set allow_no_lpips: true to train without it.")
-        log.warning("training WITHOUT the LPIPS term (allow_no_lpips)")
+        if not cfg.get("lpips_weights"):
+            # a config error fails before any model build
+            if not cfg.get("allow_no_lpips", False):
+                raise ValueError(
+                    "no lpips_weights configured. The reference stage-1 loss "
+                    "is L1 + LPIPS + lambda*bpp; training without LPIPS "
+                    "changes the objective. Set lpips_weights: <path> or "
+                    "allow_no_lpips: true.")
+            log.warning("training WITHOUT the LPIPS term (allow_no_lpips)")
         if cfg.get("fsdp", False):
             raise NotImplementedError("fsdp: multi-GPU training is not "
                                       "ported yet")
         self.device = resolve_device(device)
         self.seed = int(cfg.get("seed", 0))
+        # the loss's VGG: frozen, outside the model, so never in the
+        # optimizer or the frozen split; gradients reach x_hat through it
+        self.lpips = (load_lpips(cfg["lpips_weights"], avg_pool=True,
+                                 device=self.device)
+                      if cfg.get("lpips_weights") else None)
 
         torch.manual_seed(self.seed)
         with torch.device(self.device):
@@ -91,7 +98,8 @@ class Trainer:
             pix_weight=float(cfg.get("pix_weight", 1.0)),
             lpips_weight=float(cfg.get("lpips_weight", 1.0)),
             lmbda=lmbda, lmbda_schedule=dict(sched),
-            pix_loss_type=cfg.get("pix_loss_type", "l1"))
+            pix_loss_type=cfg.get("pix_loss_type", "l1"),
+            lpips_fn=nhwc_metric(self.lpips) if self.lpips else None)
         self.step_fn = make_train_step(self.loss,
                                        int(cfg.get("grad_accum", 1)))
 

@@ -18,11 +18,14 @@ of the tree, the encode side (``vae/encoder``, ``codec/enc``,
 ``state_dict_from_safetensors`` reads the inference CLI's ``ckpt=``
 flavour: such a tree saved with "/"-joined keys, as
 ``onedc_tpu/utils/checkpoint.py:save_safetensors`` writes it.
+``flat_state_dict`` reads the metric networks' converted files
+(``nn/{lpips,dists,inception}.py``), whose few leaves that are neither a
+kernel nor a bias keep their name and layout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,3 +79,21 @@ def state_dict_from_safetensors(path) -> Dict[str, torch.Tensor]:
     flat = load_safetensors(path)
     return state_dict_from_jax(unflatten_params(
         {k: v.float().numpy() for k, v in flat.items()}))
+
+
+def flat_state_dict(flat: Mapping[str, object], as_is: Sequence[str] = ()
+                    ) -> Dict[str, torch.Tensor]:
+    """A flat {"/"-joined path: array or CPU tensor} dict -> f32 state
+    dict: the keys in ``as_is`` keep their name and layout, every other
+    leaf goes through ``convert_leaf``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        if isinstance(value, torch.Tensor):
+            value = value.float().numpy()
+        arr = np.asarray(value, np.float32)
+        if path in as_is:
+            key = path
+        else:
+            key, arr = convert_leaf(path, arr)
+        out[key] = tensor_from_numpy(np.ascontiguousarray(arr))
+    return out

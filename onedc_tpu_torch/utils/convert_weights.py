@@ -1,0 +1,103 @@
+"""Convert torch weight files into the metric networks' safetensors layouts.
+
+JAX counterpart: ``onedc_tpu/utils/convert_weights.py`` (the
+``inception``, ``dists`` and ``lpips`` subcommands, :46-77). The files it
+writes have the JAX package's converted layout ("/"-joined keys, HWIO
+kernels), so a file written by either package loads in the other.
+Weights must arrive on disk; nothing is downloaded.
+
+  # pytorch-fid / torch-fidelity pt_inception-2015-12-05 state dict
+  python -m onedc_tpu_torch.utils.convert_weights inception \\
+      --src pt_inception.pth --out inception.safetensors
+
+  # torchvision VGG16 features + DISTS package alpha/beta buffers
+  python -m onedc_tpu_torch.utils.convert_weights dists \\
+      --vgg vgg16.pth --dists weights.pt --out dists.safetensors
+
+  # torchvision VGG16 features + LPIPS linear heads
+  python -m onedc_tpu_torch.utils.convert_weights lpips \\
+      --vgg vgg16.pth --lins lpips_lins.pth --out lpips.safetensors
+
+The JAX package's ``onedc`` and ``guidance`` subcommands are not ported
+yet (the release layout loads directly: ``eval/inference.py``
+``checkpoint_path=``).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from .safetensors import save_safetensors
+
+
+def _torch_load(path):
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    return {k: np.asarray(v) for k, v in obj.items()}
+
+
+def convert_inception(src, out):
+    from ..nn.inception import convert_torch_inception
+    save_safetensors(convert_torch_inception(_torch_load(src)), out)
+
+
+def convert_dists(vgg, dists, out):
+    from ..nn.dists import convert_torch_dists
+    vgg_state = _torch_load(vgg)
+    d = _torch_load(dists)
+    if "alpha" not in d or "beta" not in d:
+        raise KeyError(f"{dists}: no alpha / beta in {sorted(d)[:5]}")
+    save_safetensors(convert_torch_dists(vgg_state, d["alpha"], d["beta"]),
+                     out)
+
+
+def convert_lpips(vgg, lins, out):
+    from ..nn.lpips import convert_torch_vgg16
+    vgg_state = _torch_load(vgg)
+    lin_state = _torch_load(lins)
+    # lpips package layout: lin{k}.model.1.weight
+    lin_weights = []
+    for k in range(5):
+        for name in (f"lin{k}.model.1.weight", f"lins.{k}.model.1.weight"):
+            if name in lin_state:
+                lin_weights.append(lin_state[name])
+                break
+        else:
+            raise KeyError(f"no linear head {k} in {sorted(lin_state)[:5]}")
+    save_safetensors(convert_torch_vgg16(vgg_state, lin_weights), out)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    s = sub.add_parser("inception")
+    s.add_argument("--src", required=True)
+    s.add_argument("--out", required=True)
+
+    s = sub.add_parser("dists")
+    s.add_argument("--vgg", required=True)
+    s.add_argument("--dists", required=True)
+    s.add_argument("--out", required=True)
+
+    s = sub.add_parser("lpips")
+    s.add_argument("--vgg", required=True)
+    s.add_argument("--lins", required=True)
+    s.add_argument("--out", required=True)
+
+    args = p.parse_args(argv)
+    if args.cmd == "inception":
+        convert_inception(args.src, args.out)
+    elif args.cmd == "dists":
+        convert_dists(args.vgg, args.dists, args.out)
+    elif args.cmd == "lpips":
+        convert_lpips(args.vgg, args.lins, args.out)
+    print(f"wrote {args.out}")
+
+
+if __name__ == "__main__":
+    main()

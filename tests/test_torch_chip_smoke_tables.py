@@ -3,7 +3,11 @@ what the full-width model's structure launches (on meta tensors), and its
 limits on K1's row log-sum-exp (moved out of
 ``test_torch_train_step.py``, whose module fixture runs the JAX step for
 minutes, so that these run on another worker), the launches of the
-pipelined serving schedule, and the w8a8 phase's quantized ops."""
+pipelined serving schedule, the w8a8 phase's quantized ops, the quality
+phase's launches and plain reference, and the training phase's LPIPS
+config."""
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -266,3 +270,65 @@ def test_chip_smoke_w8a8_tables(monkeypatch):
         o.family == "upsample" for o in ops)
     assert -(-cs.SERVE_SQUARE // cs.SERVING_CHUNK) == 2
     assert cs.pipelined_launches((768, 768), cs.SERVE_SQUARE) == (20, 56)
+
+
+def test_chip_smoke_trains_with_lpips(tmp_path):
+    """The training phase's config: TRAIN_OVERRIDES no longer let the
+    trainer go without LPIPS, and with the phase's file the stage-I config
+    weighs LPIPS in the loss; the trainer builds its frozen VGG from it
+    (at the tiny width on the CPU)."""
+    import chip_smoke as cs
+    from onedc_tpu_torch.config import load_config
+    from onedc_tpu_torch.nn.lpips import random_lpips_weights
+    from onedc_tpu_torch.train.trainer import Trainer
+    from onedc_tpu_torch.utils.safetensors import save_safetensors
+    from torch_port_common import TINY
+
+    assert "allow_no_lpips" not in cs.TRAIN_OVERRIDES
+    path = tmp_path / "lpips.safetensors"
+    save_safetensors(random_lpips_weights(0), path)
+    cfg = load_config(Path(cs.__file__).parent / "configs" /
+                      "train_stage1.yaml", cs.train_overrides(path))
+    assert cfg["lpips_weights"] == str(path) and cfg["lpips_weight"] > 0
+    assert not cfg.get("allow_no_lpips")
+    assert (cfg["optimizer"], cfg["frozen"], cfg["resolutions"]) == (
+        "adamw", ["vae"], [512, 768])
+    tr = Trainer(dict(cfg, model=dict(TINY)), device="cpu")
+    assert tr.lpips is not None and tr.loss.lpips_fn is not None
+
+
+def test_chip_smoke_quality_tables():
+    """The quality phase's launches: per image one encode and one decode,
+    for each of the sweep's two points; and the kernels line reads the
+    phase's K1 and K2 launches under ``quality``."""
+    import inspect
+
+    import chip_smoke as cs
+
+    assert cs.quality_launches(cs.SERVING_SIZES) == (240, 2304)
+    assert cs.quality_launches([(768, 768)], points=1) == (12, 48)
+    source = inspect.getsource(cs.main)
+    assert '"quality": quality["K1"]' in source
+    assert '"quality": quality["K2"]' in source
+
+
+def test_chip_smoke_quality_reference_is_the_ports_metrics():
+    """The quality phase's numpy f64 PSNR / MS-SSIM (its plain reference
+    for the card) against the port's f32 metrics on the CPU, on a
+    landscape and a portrait image, within the phase's limits."""
+    import chip_smoke as cs
+    from onedc_tpu_torch.eval import metrics
+
+    rng = np.random.default_rng(0)
+    for h, w in ((192, 256), (256, 192)):
+        x = np.repeat(np.repeat(rng.uniform(0, 1, (h // 8, w // 8, 3)), 8,
+                                0), 8, 1)
+        y = np.clip(x + 0.1 * rng.standard_normal(x.shape), 0, 1)
+        x, y = x.astype(np.float32), y.astype(np.float32)
+        psnr, msssim = cs.quality_reference_f64(x, y)
+        xt, yt = torch.from_numpy(x)[None], torch.from_numpy(y)[None]
+        assert abs(float(metrics.psnr(xt, yt)[0]) - psnr) <= \
+            cs.QUALITY_PSNR_TOL
+        assert abs(float(metrics.ms_ssim(xt, yt)[0]) - msssim) <= \
+            cs.QUALITY_SSIM_TOL
+        assert 0.1 < msssim < 0.99

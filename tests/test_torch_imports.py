@@ -35,7 +35,14 @@ REACHED_MODULES = ("onedc_tpu_torch.entropy.bound", "onedc_tpu_torch.config",
                     "onedc_tpu_torch.utils.calibrate",
                     "onedc_tpu_torch.utils.device",
                     "onedc_tpu_torch.nn.quant",
-                    "onedc_tpu_torch.ops.w8a8")
+                    "onedc_tpu_torch.ops.w8a8",
+                    "onedc_tpu_torch.eval.metrics",
+                    "onedc_tpu_torch.eval.quality",
+                    "onedc_tpu_torch.eval.rd_sweep",
+                    "onedc_tpu_torch.nn.lpips",
+                    "onedc_tpu_torch.nn.dists",
+                    "onedc_tpu_torch.nn.inception",
+                    "onedc_tpu_torch.utils.convert_weights")
 
 
 def test_import_loads_no_jax_and_no_onedc_tpu():
@@ -56,8 +63,9 @@ def test_import_loads_no_jax_and_no_onedc_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, rest = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 40
-    assert rest.strip() == "[] []"  # the walk reached every training module
+    assert int(n_modules) >= 56
+    # the walk reached every training and quality module
+    assert rest.strip() == "[] []"
 
 
 def test_source_imports_nothing_of_the_jax_package():
@@ -81,6 +89,27 @@ def test_runtime_needs_the_card_unless_told_otherwise():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         OneDCRuntime(model)
     assert OneDCRuntime(model, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["quality", "rd_sweep"])
+def test_quality_entry_points_need_the_card_unless_told_otherwise(
+        entry, tmp_path):
+    """``eval.quality.main`` and ``eval.rd_sweep.main`` (through the
+    metric nets' and the Evaluator's device) raise without a GPU unless
+    given ``--device cpu`` / ``device=cpu``."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from onedc_tpu_torch.eval import quality, rd_sweep
+    if entry == "quality":
+        argv = ["--real_dir", str(tmp_path), "--fake_dir", str(tmp_path)]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            quality.main(argv)
+        with pytest.raises(ValueError, match="no paired images"):
+            quality.main(argv + ["--device", "cpu"])
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rd_sweep.main(["--config", str(ROOT / "configs" /
+                                           "rd_sweep.yaml")])
 
 
 def test_trainer_needs_the_card_unless_told_otherwise():
