@@ -64,9 +64,16 @@
    device busy, pipelined decodes/s; per op in build/w8a8_costs.json);
    a BUNDLE_BUCKET w8a8 bundle served by a fresh process, bit-identical
    to the runtime's pipelined images.
-9. TF32 probe (printed, not a check): on a full-width f32 runtime, how many
+9. Tiled phase (``tiled_path``), on the same runtime: a seeded 3840x2160
+   image through ``TiledCodec(rt, 768, 64)`` (``parallel/tiled.py``): the
+   ODTC header and 18 tiles, every tile stream decodes to its writer's
+   plan bit for bit, the stitched image equals ``decode_batch``'s tiles
+   bit for bit wherever one tile alone covers a pixel at weight 1, a
+   768x768 image passes through to the runtime's container, launches as
+   ``tiled_launches``; encode and decode walls, tiles/s, peak memory.
+10. TF32 probe (printed, not a check): on a full-width f32 runtime, how many
    CDF indexes and symbols of a 512x768 write plan move when TF32 is on.
-10. cli path: a full-width release directory (``tests/twins.py``, F16,
+11. cli path: a full-width release directory (``tests/twins.py``, F16,
    written once for this phase and the next) loaded by
    ``eval.inference.main`` with ``checkpoint_path=``, bf16: the
    loaded weights against the twins, ``evaluate`` of the encode path's
@@ -74,7 +81,7 @@
    images, after a warm pass), ``--decoder_only`` in a fresh Evaluator,
    and a TinyVAE runtime beside the large VAE's on one model (see
    ``cli_path``).
-11. Quality path (``quality_path``): ``eval.rd_sweep.main`` on
+12. Quality path (``quality_path``): ``eval.rd_sweep.main`` on
    ``configs/rd_sweep.yaml`` with two points on the same release, the
    lambda model and the z-only exlow one, over a Kodak-sized set of PNGs,
    with seeded random LPIPS, DISTS and InceptionV3 files written by the
@@ -84,7 +91,7 @@
    features and logits against the same modules on the CPU (the QUALITY_*
    limits); the metric nets' rates, the host ``sqrtm`` seconds, walls and
    peak memory.
-12. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
+13. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
    overrides in ``TRAIN_OVERRIDES`` and a seeded random LPIPS file
    (``train_overrides``), full width, f32, random seeded weights, seeded
    synthetic 1024x1024 images: two steps at 512x512 (batch 2) and one at
@@ -94,9 +101,19 @@
    every kernel's launches per step (the VGG's convs are stock: no K1-K3),
    and a finite non-zero gradient on the first UNet ``attn1.to_q`` (it
    arrives only through K1-bwd and K3).
-13. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
-   decode_z_only, serve, bundle, decode_w8a8, cli, quality, train), the
-   card line and, last, the device line.
+   Before it, the device memory still allocated once the cli and
+   quality phases' runtimes are dropped must be under 1 GiB (no runtime
+   sits in a reference cycle).
+14. Training-loop phase (``train_loop_path``): ``train.trainer.main`` on
+   the same config with seeded 1024x1024 training PNGs and 512x768 eval
+   PNGs: TRAIN_LOOP_STEPS steps, eval and a checkpoint at TRAIN_LOOP_SAVE,
+   then ``--resume`` in a fresh trainer; the resumed state equals the
+   uninterrupted run's bit for bit, device memory returns once the first
+   trainer is dropped, launches as ``train_loop_launches``; checkpoint
+   bytes, save and restore seconds, s/step.
+15. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
+   decode_z_only, serve, bundle, decode_w8a8, cli, quality, tiled, train,
+   train_loop), the card line and, last, the device line.
 
 The whole run holds the numerics the package pins in its entry points
 (``onedc_tpu_torch/utils/numerics.py``).
@@ -107,9 +124,9 @@ from __future__ import annotations
 
 import argparse
 import csv
-import gc
 import json
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -312,6 +329,25 @@ RELEASE_PROBES = [
 # launches (K1, K2) per TinyVAE decode (the cli phase's vae=tiny run): the
 # UNet's K1 as in the large VAE's decode; the TinyVAE's convs are stock
 TINY_VAE_PER_CALL = {"768x768": (10, 0)}
+# the tiled phase: a seeded 3840x2160 image through TiledCodec(rt, 768, 64),
+# 3 rows x 6 columns of 768x768 tiles (rows 0, 704, 1392; columns 0, 704,
+# 1408, 2112, 2816, 3072), then a 768x768 image through the pass-through
+TILED_SIZE = (2160, 3840)
+TILED_TILE = 768
+TILED_OVERLAP = 64
+TILED_TILES = 18
+# the training-loop phase: train.trainer.main on configs/train_stage1.yaml
+# with TRAIN_OVERRIDES, TRAIN_LOOP_TRAIN seeded 1024x1024 PNGs and
+# TRAIN_LOOP_EVAL 512x768 ones; TRAIN_LOOP_STEPS steps with eval and a
+# checkpoint at TRAIN_LOOP_SAVE, then a resumed run from there to the end.
+# EVAL_PER_IMAGE: (K1, K1-bwd, K2, K3) of one eval forward at 512x768 in
+# f32 (the SD UNet's attn1 at /8; the VAE encoder's 20 and decoder's 28
+# resnet convs; no backward)
+TRAIN_LOOP_TRAIN = 4
+TRAIN_LOOP_EVAL = 2
+TRAIN_LOOP_STEPS = 3
+TRAIN_LOOP_SAVE = 2
+EVAL_PER_IMAGE = {(512, 768): (5, 0, 48, 0)}
 # the w8a8 phase: ops per decode that run quantized at the default gate 512,
 # by family (``nn/quant.py:family``; the full-width model's structure, held
 # by tests/test_torch_chip_smoke_tables.py against a recording pass on meta
@@ -2065,6 +2101,36 @@ def serving_launches(sizes):
     return k1, k2
 
 
+def tiled_launches():
+    """(K1, K2) launches of the tiled phase, in its three parts: the 4K
+    encode (``encode_many``: one encode per device chunk of SERVING_CHUNK
+    tiles), its decode (``decode_batch`` of the tiles' streams, pipelined)
+    and the 768x768 pass-through's encode and decode."""
+    tile = (TILED_TILE, TILED_TILE)
+    chunks = -(-TILED_TILES // SERVING_CHUNK)
+    encode = tuple(chunks * n for n in ENCODE_PER_CALL[tile])
+    decode = batch_launches([tile] * TILED_TILES)
+    single = tuple(a + b for a, b in zip(ENCODE_PER_CALL[tile],
+                                         decode_launches(*tile)))
+    return {"encode": encode, "decode": decode, "pass_through": single}
+
+
+def train_loop_launches():
+    """(K1, K1-bwd, K2, K3) launches of the training-loop phase: the
+    uninterrupted run's TRAIN_LOOP_STEPS steps and one eval epoch, the
+    resumed run's steps from TRAIN_LOOP_SAVE; each step's resolution by
+    ``MultiResolutionCrop.pick`` of TRAIN_OVERRIDES' list."""
+    from onedc_tpu_torch.data.crops import MultiResolutionCrop
+
+    crop = MultiResolutionCrop(TRAIN_OVERRIDES["resolutions"],
+                               TRAIN_OVERRIDES["batch_scales"])
+    steps = list(range(TRAIN_LOOP_STEPS)) \
+        + list(range(TRAIN_LOOP_SAVE, TRAIN_LOOP_STEPS))
+    per = [TRAIN_PER_STEP[crop.pick(s)[0]] for s in steps]
+    per += [EVAL_PER_IMAGE[(512, 768)]] * TRAIN_LOOP_EVAL
+    return tuple(map(sum, zip(*per)))
+
+
 def check_release_loaded(model, probes: dict) -> float:
     """Each RELEASE_PROBES tensor of ``model`` (bf16 on the card) against
     the twins' values: within bf16's rounding (2^-8 of the largest
@@ -2663,6 +2729,286 @@ def train_path(seed: int):
             "K2": k2.launches, "K3": k2.conv_launches}, records
 
 
+def tiled_image(seed: int):
+    """A seeded TILED_SIZE image (1, H, W, 3) f32 in [-1, 1], built as
+    ``synthetic_batches``' are: 32-pixel blocks of random colour with fine
+    noise on top."""
+    h, w = TILED_SIZE
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(-1, 1, (1, -(-h // 32), w // 32, 3))
+    img = 0.8 * np.repeat(np.repeat(coarse, 32, 1), 32, 2)[:, :h] \
+        + 0.2 * rng.uniform(-1, 1, (1, h, w, 3))
+    return img.astype(np.float32)
+
+
+def tiled_path(rt, seed: int):
+    """The tiled phase on the decode phase's bf16 runtime: a seeded
+    3840x2160 image through ``TiledCodec(rt, 768, 64)``. The container's
+    header and 18 tiles; every tile stream decodes to its writer's plan
+    (``write_plan`` of its device chunk) bit for bit; the stitched image
+    is finite, of the image's shape, on the card, and equal bit for bit to
+    ``rt.decode_batch`` of the same 18 streams wherever one tile alone
+    covers a pixel at weight 1; a 768x768 image passes through to the
+    runtime's own container and decode; launches as ``tiled_launches``.
+    Prints encode and decode walls, tiles/s and peak memory. Returns the
+    K1 and K2 launches of the phase's encodes and decodes."""
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.parallel.tiled import (
+        MAGIC,
+        TiledCodec,
+        _ramp_weight,
+        plan_tiles,
+        split_container,
+    )
+
+    counts = (k1, k2)
+    image = tiled_image(seed + 5)
+    h, w = TILED_SIZE
+    tc = TiledCodec(rt, TILED_TILE, TILED_OVERLAP)
+    want = tiled_launches()
+    k1.launches = 0
+    k2.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (stream, info), got = counted(counts, lambda: tc.encode(image))
+    enc_s = time.perf_counter() - t0
+    if got != want["encode"]:
+        raise AssertionError(f"4K encode launched K1/K2 {got}, expected "
+                             f"{want['encode']}")
+    if not stream.startswith(MAGIC):
+        raise AssertionError("the 4K container lacks the ODTC magic")
+    head, subs = split_container(stream)
+    if len(stream) != len(MAGIC) + struct.calcsize(">HHHII") \
+            + 4 * len(subs) + sum(map(len, subs)):
+        raise AssertionError("the 4K container's lengths do not add up")
+    corners = plan_tiles(h, w, TILED_TILE, TILED_OVERLAP)
+    grid = (len({y for y, _ in corners}), len({x for _, x in corners}))
+    if head != (TILED_TILE, *grid, h, w) or info["n_tiles"] != TILED_TILES \
+            or len(subs) != TILED_TILES or len(corners) != TILED_TILES:
+        raise AssertionError(f"4K container header {head}, {len(subs)} "
+                             f"tiles, info {info}")
+    t0 = time.perf_counter()
+    out, got = counted(counts, lambda: tc.decode(stream=stream))
+    dec_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if got != want["decode"]:
+        raise AssertionError(f"4K decode launched K1/K2 {got}, expected "
+                             f"{want['decode']}")
+    if out.shape != (1, h, w, 3) or out.dtype != torch.float32 \
+            or out.device.type != rt.device.type \
+            or not torch.isfinite(out).all():
+        raise AssertionError(f"4K decode: bad image {tuple(out.shape)} "
+                             f"{out.dtype} {out.device}")
+    small = np.ascontiguousarray(image[:, :TILED_TILE, :TILED_TILE])
+    (single, _), got_enc = counted(counts, lambda: tc.encode(small))
+    passed, got_dec = counted(counts, lambda: tc.decode(stream=single))
+    got = tuple(a + b for a, b in zip(got_enc, got_dec))
+    if got != want["pass_through"]:
+        raise AssertionError(f"768x768 pass-through launched K1/K2 {got}")
+    launches = {"K1": k1.launches, "K2": k2.launches}
+    if single.startswith(MAGIC) or single != rt.encode(small)[0]:
+        raise AssertionError("a 768x768 image did not pass through to the "
+                             "runtime's container")
+    if not torch.equal(passed, rt.decode(single)):
+        raise AssertionError("the pass-through decode differs from the "
+                             "runtime's")
+
+    # every tile stream against its writer's plan: encode_many wrote the
+    # tiles in device chunks of SERVING_CHUNK, in corner order
+    tiles = np.concatenate([image[:, ty:ty + TILED_TILE, tx:tx + TILED_TILE]
+                            for ty, tx in corners])
+    for c0 in range(0, TILED_TILES, SERVING_CHUNK):
+        plan = rt.write_plan(tiles[c0:c0 + SERVING_CHUNK])
+        for j in range(min(SERVING_CHUNK, TILED_TILES - c0)):
+            check_stream_decodes_to_plan(rt, subs[c0 + j], plan, j,
+                                         f"4K tile {c0 + j}")
+        del plan
+    # the stitch against decode_batch of the same streams, where one tile
+    # alone covers a pixel at its weight 1
+    singles = rt.decode_batch(subs)
+    weight = torch.from_numpy(_ramp_weight(TILED_TILE, TILED_OVERLAP)).to(
+        rt.device)
+    cover = torch.zeros((h, w), dtype=torch.int32, device=rt.device)
+    for ty, tx in corners:
+        cover[ty:ty + TILED_TILE, tx:tx + TILED_TILE] += 1
+    checked = 0
+    for (ty, tx), til in zip(corners, singles):
+        mask = (weight == 1) & (cover[ty:ty + TILED_TILE,
+                                      tx:tx + TILED_TILE] == 1)
+        checked += int(mask.sum())
+        if not torch.equal(out[0, ty:ty + TILED_TILE, tx:tx + TILED_TILE][
+                mask], til[0][mask]):
+            raise AssertionError(f"the stitched 4K image differs from "
+                                 f"decode_batch's tile at ({ty}, {tx})")
+    del singles
+    timed = {"encode_s": [enc_s], "decode_s": [dec_s]}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        stream2, _ = tc.encode(image)
+        timed["encode_s"].append(time.perf_counter() - t0)
+        timed["decode_s"].append(
+            _wall_ms(lambda: tc.decode(stream=stream2)) / 1e3)
+    print(f"tiled: {w}x{h} in {TILED_TILES} tiles of {TILED_TILE} "
+          f"(overlap {TILED_OVERLAP}): {len(stream)} bytes, "
+          f"{info['bpp']:.5f} bpp ({info['bpp_tiles']:.5f} in the tiles); "
+          f"every tile stream decodes to its plan; the stitch equals "
+          f"decode_batch on {checked} pixels covered once at weight 1; "
+          f"K1/K2 launches {tiled_launches()}", flush=True)
+    print("tiled walls " + json.dumps({
+        **timed,
+        "encode_tiles_per_s": [TILED_TILES / t for t in timed["encode_s"]],
+        "decode_tiles_per_s": [TILED_TILES / t for t in timed["decode_s"]],
+        "peak_gib": peak}), flush=True)
+    return launches
+
+
+def train_loop_path(seed: int):
+    """The training-loop phase: ``train.trainer.main`` on
+    configs/train_stage1.yaml with ``train_overrides`` (a seeded random
+    LPIPS file), seeded 1024x1024 training PNGs and 512x768 eval PNGs in a
+    temporary folder, TRAIN_LOOP_STEPS steps logged every step, eval and a
+    checkpoint at TRAIN_LOOP_SAVE (``max_checkpoint`` 1); then ``main
+    --resume`` on the same run directory in a fresh trainer, from the
+    checkpoint to the end. Checks: finite train and eval metrics with the
+    LPIPS term > 0; ``config.yaml``, the checkpoint and
+    ``checkpoints_best/``; the resumed run's parameters, AdamW moments,
+    step and count equal the uninterrupted run's bit for bit (its state
+    kept on the host); device memory back to its level before the first
+    trainer once it is dropped (no collector run); enough free disk for
+    two checkpoints first. Prints the checkpoint's bytes, save and restore
+    seconds, s/step and peak memory. Returns each kernel's launches over
+    both runs."""
+    from onedc_tpu_torch.config import load_config
+    from onedc_tpu_torch.data.images import save_image
+    from onedc_tpu_torch.models.onedc import OneDC
+    from onedc_tpu_torch.nn.lpips import random_lpips_weights
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.train import trainer as tr
+    from onedc_tpu_torch.train.step import split_frozen
+    from onedc_tpu_torch.utils.logging import read_metrics
+    from onedc_tpu_torch.utils.safetensors import save_safetensors
+
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_train_loop_"))
+    try:
+        rng = np.random.default_rng(seed + 11)
+        for sub, n, (hh, ww) in (("train", TRAIN_LOOP_TRAIN, (1024, 1024)),
+                                 ("eval", TRAIN_LOOP_EVAL, (512, 768))):
+            (tmp / sub).mkdir()
+            for i in range(n):
+                img = next(synthetic_batches(int(rng.integers(1 << 30)), 1,
+                                             1024))["image"][0, :hh, :ww]
+                save_image(img, tmp / sub / f"{sub}{i}.png")
+        save_safetensors(random_lpips_weights(seed), tmp / "lpips.safetensors")
+        run = tmp / "run"
+        overrides = dict(train_overrides(tmp / "lpips.safetensors"),
+                         train_data=str(tmp / "train"),
+                         eval_data=str(tmp / "eval"), run_dir=str(run),
+                         total_steps=TRAIN_LOOP_STEPS,
+                         save_interval=TRAIN_LOOP_SAVE, log_interval=1,
+                         max_checkpoint=1)
+        argv = ["--config", "configs/train_stage1.yaml"] + [
+            f"{k}={json.dumps(v)}" for k, v in overrides.items()]
+        cfg = load_config("configs/train_stage1.yaml", overrides)
+        with torch.device("meta"):
+            meta_model = OneDC(**cfg["model"])
+        n_all = sum(p.numel() for p in meta_model.parameters())
+        n_train = sum(p.numel() for _, p in split_frozen(
+            meta_model, tuple(cfg["frozen"]))[0])
+        del meta_model
+        need = 2 * 4 * (n_all + 2 * n_train)
+        free = shutil.disk_usage(tmp).free
+        print(f"train loop: checkpoint of {n_all / 1e9:.3f} B parameters "
+              f"and {2 * n_train / 1e9:.3f} B moments, "
+              f"{4 * (n_all + 2 * n_train) / 1e9:.2f} GB; "
+              f"{free / 1e9:.1f} GB free", flush=True)
+        if free < need:
+            raise AssertionError(f"{free / 1e9:.1f} GB free under {tmp}, "
+                                 f"{need / 1e9:.1f} GB needed")
+
+        counters = ((k1, "launches"), (k1, "bwd_launches"), (k2, "launches"),
+                    (k2, "conv_launches"))
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole = tr.main(argv)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        tensors, meta = whole.checkpoint_state()
+        t0 = time.perf_counter()
+        want = {k: v.cpu() for k, v in tensors.items()}
+        host_s = time.perf_counter() - t0
+        del tensors, whole
+        torch.cuda.synchronize()
+        left = torch.cuda.memory_allocated() - base
+        print(f"train loop: uninterrupted run {whole_s:.1f} s, peak "
+              f"{peak:.2f} GiB; its state to the host in {host_s:.1f} s; "
+              f"device memory after the trainer is dropped: {left / 2**20:+.1f}"
+              f" MiB against before it", flush=True)
+        if left > 256 * 2 ** 20:
+            raise AssertionError(f"a dropped trainer still holds "
+                                 f"{left / 2**30:.2f} GiB of device memory")
+        for name in ("config.yaml", f"checkpoint_model_{TRAIN_LOOP_SAVE:06d}"
+                     "/state.safetensors", "checkpoints_best/state.safetensors"):
+            if not (run / name).exists():
+                raise AssertionError(f"the run directory lacks {name}")
+
+        t0 = time.perf_counter()
+        resumed = tr.main(argv + ["--resume"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        tensors, meta_r = resumed.checkpoint_state()
+        if meta_r != meta or sorted(tensors) != sorted(want):
+            raise AssertionError(f"resumed state {meta_r}, uninterrupted "
+                                 f"{meta}")
+        differ = [k for k, v in tensors.items()
+                  if not torch.equal(v.cpu(), want[k])]
+        if differ:
+            raise AssertionError(f"{len(differ)} of {len(want)} tensors of "
+                                 f"the resumed run differ from the "
+                                 f"uninterrupted run's, e.g. {differ[:4]}")
+        del tensors, resumed, want
+        got = tuple(getattr(m, a) for m, a in counters)
+
+        rows = read_metrics(run)
+        train = [r for r in rows if "train/pix" in r]
+        evals = [r for r in rows if "eval/total_loss" in r]
+        ckpt = [r for r in rows if any(k.startswith("checkpoint/")
+                                       for k in r)]
+        if [r["step"] for r in train] != list(range(1, TRAIN_LOOP_STEPS + 1)) \
+                + list(range(TRAIN_LOOP_SAVE + 1, TRAIN_LOOP_STEPS + 1)) \
+                or [r["step"] for r in evals] != [TRAIN_LOOP_SAVE]:
+            raise AssertionError(f"metrics.jsonl rows {rows}")
+        for r in train + evals + ckpt:
+            bad = {k: v for k, v in r.items() if not np.isfinite(v)}
+            if bad:
+                raise AssertionError(f"step {r['step']}: {bad}")
+        for r, key in [(r, "train/lpips") for r in train] + \
+                [(evals[0], "eval/lpips")]:
+            if not r[key] > 0:
+                raise AssertionError(f"step {r['step']}: {key} {r[key]}")
+    finally:
+        shutil.rmtree(tmp)
+    want_launches = train_loop_launches()
+    print(f"train loop: resumed run {resume_s:.1f} s; the resumed state "
+          f"equals the uninterrupted run's bit for bit ({meta}); "
+          f"K1/K1-bwd/K2/K3 launches {got}, expected {want_launches}",
+          flush=True)
+    print("train loop records " + json.dumps({
+        "checkpoint": ckpt, "sec_per_step": [
+            (r["step"], r["train/sec_per_step"]) for r in train],
+        "eval": evals[0], "peak_gib": peak}), flush=True)
+    if got != want_launches:
+        raise AssertionError(f"train loop launches {got}, expected "
+                             f"{want_launches}")
+    return {"K1": got[0], "K1-bwd": got[1], "K2": got[2], "K3": got[3]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2724,6 +3070,9 @@ def main():
         t0 = time.perf_counter()
         decode_w8a8 = w8a8_path(rt, square, args.seed, card)
         print(f"w8a8 phase: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        tiled = tiled_path(rt, args.seed)
+        print(f"tiled phase: {time.perf_counter() - t0:.1f} s", flush=True)
         del rt, model, square
         torch.cuda.empty_cache()
         tf32_probe(args.seed)
@@ -2745,11 +3094,21 @@ def main():
                   flush=True)
         finally:
             shutil.rmtree(release)
-        # the cli and quality phases' runtimes, before the training phase
-        # reads its peak memory
-        gc.collect()
+        # the cli and quality phases' runtimes are gone with their last
+        # references (none sits in a reference cycle)
+        left = torch.cuda.memory_allocated() / 2 ** 30
+        print(f"device memory held after the cli and quality phases: "
+              f"{left:.3f} GiB", flush=True)
+        if left > 1.0:
+            raise AssertionError(f"{left:.2f} GiB still allocated after the "
+                                 f"phases' runtimes were dropped")
         torch.cuda.empty_cache()
         train, records = train_path(args.seed)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train_loop = train_loop_path(args.seed)
+        print(f"training-loop phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     kernels = [
         summarize("flash_attention_fwd",
@@ -2759,23 +3118,27 @@ def main():
                    "decode_z_only": z_only["K1"], "serve": serve["K1"],
                    "bundle": bundle["K1"], "decode_w8a8": decode_w8a8["K1"],
                    "cli": cli["K1"], "quality": quality["K1"],
-                   "train": train["K1"]},
+                   "tiled": tiled["K1"], "train": train["K1"],
+                   "train_loop": train_loop["K1"]},
                   "768x768"),
         summarize("flash_attention_bwd",
                   "onedc_tpu_torch/csrc/flash_attention_bwd.cu",
                   "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-                  k1b_rows, {"train": train["K1-bwd"]}, "train512"),
+                  k1b_rows, {"train": train["K1-bwd"],
+                             "train_loop": train_loop["K1-bwd"]}, "train512"),
         summarize("gn_silu_conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
                   "onedc_tpu/ops/pallas_conv.py:292", k2_rows + k2t_rows,
                   {"decode": decode["K2"], "encode": encode["K2"],
                    "decode_z_only": z_only["K2"], "serve": serve["K2"],
                    "bundle": bundle["K2"], "decode_w8a8": decode_w8a8["K2"],
                    "cli": cli["K2"], "quality": quality["K2"],
-                   "train": train["K2"]},
+                   "tiled": tiled["K2"], "train": train["K2"],
+                   "train_loop": train_loop["K2"]},
                   "768x768"),
         summarize("conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
                   "onedc_tpu/ops/pallas_conv.py:89", k3_rows,
-                  {"train": train["K3"]}, "train512"),
+                  {"train": train["K3"], "train_loop": train_loop["K3"]},
+                  "train512"),
     ]
     for k in kernels:
         if any(n == 0 for n in k["launches_by_path"].values()):

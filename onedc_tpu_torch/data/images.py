@@ -17,7 +17,7 @@ from __future__ import annotations
 import struct
 import zlib
 from pathlib import Path
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -185,15 +185,19 @@ def save_image(arr: np.ndarray, path) -> None:
 
 class ImageFolderDataset:
     """Every image under a folder, sorted by path: items ``{"image": (H, W,
-    3) f32 in [-1, 1], "caption": "", "name": file stem}``."""
+    3) f32 in [-1, 1], "caption": "", "name": file stem}``, the image
+    through ``transform`` if one is given."""
 
-    def __init__(self, root):
+    def __init__(self, root, transform: Optional[Callable] = None):
         self.paths: List[Path] = sorted(
             p for p in Path(root).rglob("*") if p.suffix.lower() in IMG_EXTS)
+        self.transform = transform
 
     def __len__(self):
         return len(self.paths)
 
     def __getitem__(self, i: int) -> Dict[str, Any]:
-        return {"image": load_image(self.paths[i]), "caption": "",
-                "name": self.paths[i].stem}
+        arr = load_image(self.paths[i])
+        if self.transform:
+            arr = self.transform(arr)
+        return {"image": arr, "caption": "", "name": self.paths[i].stem}

@@ -35,7 +35,6 @@ point. Runs on the card unless the config says ``device: cpu``.
 from __future__ import annotations
 
 import argparse
-import gc
 from pathlib import Path
 from typing import List
 
@@ -54,13 +53,9 @@ def run_point(base_cfg: dict, point: dict) -> dict:
         cfg["output_path"] = str(
             Path(base_cfg.get("output_path", "outputs/rd_sweep"))
             / point["name"])
-    ev = Evaluator(cfg)
-    summary = ev.evaluate()
-    # the point's model is freed before the next point loads its own: the
-    # runtime's objects can sit in reference cycles that only the
-    # collector breaks (a sweep of full-width points held two at once)
-    del ev
-    gc.collect()
+    # the point's model is freed as ``evaluate`` returns, before the next
+    # point loads its own: no runtime object sits in a reference cycle
+    summary = Evaluator(cfg).evaluate()
     summary["name"] = point["name"]
     summary["recon_dir"] = str(Path(cfg["output_path"]) / "recon")
     return summary

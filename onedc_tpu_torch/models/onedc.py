@@ -81,7 +81,8 @@ class OneDC(nn.Module):
         if use_codeformer:
             raise NotImplementedError(
                 "use_codeformer: the Codeformer, MaskGitVQGAN and Swin "
-                "modules are not ported yet")
+                "modules are not ported yet (ROADMAP.md, Queue 1, "
+                "codeformer distillation)")
         self.vae_scaling_factor = vae_scaling_factor
         self.conditioning_timestep = conditioning_timestep
         self.use_large_vae = use_large_vae

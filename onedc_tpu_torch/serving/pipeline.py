@@ -30,6 +30,7 @@ from __future__ import annotations
 import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -98,6 +99,70 @@ def start_fetch(t: torch.Tensor) -> Callable[[], np.ndarray]:
     return wait
 
 
+class _ChunkSM:
+    """The four-part prior loop of one chunk, one step at a time. The index
+    fetch and the rANS decode run as a future on a worker: with one future
+    per chunk in flight, the waits for the device run concurrently and the
+    calling thread only dispatches. ``sched``: the schedule's programs,
+    shapes and queues (``pipelined_decode``). A module-level class, not one
+    made per call: a class object sits in a reference cycle, and one made
+    inside ``pipelined_decode`` would hold the programs, and with them the
+    runtime and its weights, until the collector runs."""
+
+    def __init__(sm, sched, ci, cd, workers):
+        sm.sched, sm.ci, sm.workers, sm.n = sched, ci, workers, len(cd)
+        z_indices = _pad_rows(np.stack([
+            np.asarray(sched.unpack_z(d["bit_stream_z"])).reshape(
+                sched.zh, sched.zw) for d in cd]), sched.mult)
+        sm.n_rows = z_indices.shape[0]
+        sm.coders = sched.make_coders([d["bit_stream_y"] for d in cd])
+        st = sched.programs.begin(upload(z_indices, sched.device))
+        sm.y_hat, sm.means = st["y_hat"], st["means"]
+        sm.common, sm.z_semantic = st["common"], st["z_semantic"]
+        sm.step = 0
+        sm._issue(st["indexes_r"])
+
+    def _issue(sm, idx_dev):
+        fetch = start_fetch(idx_dev)
+        coders, n, n_rows, narrow = (sm.coders, sm.n, sm.n_rows,
+                                     sm.sched.narrow)
+
+        def work():
+            idx = fetch()
+            # one native call decodes the whole chunk's streams; padding
+            # rows (no coder) get zero symbols
+            parts = type(coders[0]).decode_streams_with_indexes(
+                coders, idx[:n].reshape(n, -1)).reshape(idx[:n].shape)
+            if n_rows > n:
+                parts = np.concatenate(
+                    [parts, np.zeros_like(idx[n:], dtype=parts.dtype)])
+            return narrow(parts)
+
+        sm.fut = sm.workers.submit(work)
+
+    def ready(sm):
+        return sm.fut.done()
+
+    def advance(sm):
+        """Run one prior step; True while more steps remain."""
+        sched = sm.sched
+        parts = upload(sm.fut.result(), sched.device)
+        nxt = sched.programs.update[sm.step](parts, sm.means, sm.y_hat,
+                                             sm.common)
+        sm.y_hat, sm.means = nxt["y_hat"], nxt["means"]
+        sm.step += 1
+        if sm.step < 4:
+            sm._issue(nxt["indexes_r"])
+            return True
+        sched.pending.append(sched.mk_x0(sm.ci, sm.y_hat, sm.z_semantic))
+        bounds = list(range(0, sm.n_rows, sched.vae_chunk))
+        for pi, lo in enumerate(bounds):
+            sched.pending.append(sched.mk_vae(
+                sm.ci, pi, lo, min(lo + sched.vae_chunk, sm.n_rows),
+                len(bounds)))
+        return False
+
+
 def pipelined_decode(programs: DecodePrograms, make_coders, unpack_z,
                      decs, zh: int, zw: int, device, *, mult: int = 1,
                      chunk: Optional[int] = None,
@@ -153,70 +218,17 @@ def pipelined_decode(programs: DecodePrograms, make_coders, unpack_z,
                             torch.cat([parts[i] for i in range(nparts)]))
         return f
 
-    class _ChunkSM:
-        """The four-part prior loop of one chunk, one step at a time. The
-        index fetch and the rANS decode run as a future on a worker: with
-        one future per chunk in flight, the waits for the device run
-        concurrently and the calling thread only dispatches."""
-
-        def __init__(sm, ci, cd, workers):
-            sm.ci, sm.workers, sm.n = ci, workers, len(cd)
-            z_indices = _pad_rows(np.stack([
-                np.asarray(unpack_z(d["bit_stream_z"])).reshape(zh, zw)
-                for d in cd]), mult)
-            sm.n_rows = z_indices.shape[0]
-            sm.coders = make_coders([d["bit_stream_y"] for d in cd])
-            st = programs.begin(upload(z_indices, device))
-            sm.y_hat, sm.means = st["y_hat"], st["means"]
-            sm.common, sm.z_semantic = st["common"], st["z_semantic"]
-            sm.step = 0
-            sm._issue(st["indexes_r"])
-
-        def _issue(sm, idx_dev):
-            fetch = start_fetch(idx_dev)
-
-            def work():
-                idx = fetch()
-                # one native call decodes the whole chunk's streams;
-                # padding rows (no coder) get zero symbols
-                parts = type(sm.coders[0]).decode_streams_with_indexes(
-                    sm.coders,
-                    idx[:sm.n].reshape(sm.n, -1)).reshape(idx[:sm.n].shape)
-                if sm.n_rows > sm.n:
-                    parts = np.concatenate(
-                        [parts, np.zeros_like(idx[sm.n:],
-                                              dtype=parts.dtype)])
-                return narrow(parts)
-
-            sm.fut = sm.workers.submit(work)
-
-        def ready(sm):
-            return sm.fut.done()
-
-        def advance(sm):
-            """Run one prior step; True while more steps remain."""
-            parts = upload(sm.fut.result(), device)
-            nxt = programs.update[sm.step](parts, sm.means, sm.y_hat,
-                                           sm.common)
-            sm.y_hat, sm.means = nxt["y_hat"], nxt["means"]
-            sm.step += 1
-            if sm.step < 4:
-                sm._issue(nxt["indexes_r"])
-                return True
-            pending.append(mk_x0(sm.ci, sm.y_hat, sm.z_semantic))
-            bounds = list(range(0, sm.n_rows, vae_chunk))
-            for pi, lo in enumerate(bounds):
-                pending.append(mk_vae(sm.ci, pi, lo,
-                                      min(lo + vae_chunk, sm.n_rows),
-                                      len(bounds)))
-            return False
+    sched = SimpleNamespace(
+        programs=programs, make_coders=make_coders, unpack_z=unpack_z,
+        zh=zh, zw=zw, device=device, mult=mult, vae_chunk=vae_chunk,
+        narrow=narrow, pending=pending, mk_x0=mk_x0, mk_vae=mk_vae)
 
     with ThreadPoolExecutor(max_workers=depth) as workers:
         todo = deque(enumerate(chunks))
         live: deque = deque()
         while todo or live:
             while todo and len(live) < depth:
-                live.append(_ChunkSM(*todo.popleft(), workers))
+                live.append(_ChunkSM(sched, *todo.popleft(), workers))
             # prefer a chunk whose symbols are decoded; while none is,
             # keep the device fed with a big stage, then block on the
             # oldest

@@ -113,7 +113,8 @@ def make_optimizer(params: Sequence[nn.Parameter], lr: float = 5e-5,
                    b2: float = 0.999, optimizer: str = "adamw") -> AdamW:
     if optimizer != "adamw":
         raise NotImplementedError(f"optimizer {optimizer!r}: only adamw is "
-                                  f"ported (adafactor comes later)")
+                                  f"ported (adafactor: ROADMAP.md, Queue 1, "
+                                  f"the optimizer and memory levers)")
     return AdamW(params, lr, warmup_steps, grad_clip, weight_decay, b1, b2)
 
 
@@ -130,18 +131,17 @@ def split_frozen(model: nn.Module, frozen: Sequence[str] = ("vae",)
 
 class TrainState:
     """The model, its optimizer over the trainable parameters, and the
-    frozen names. ``step`` is the optimizer's count, as ``TrainState.step``
-    in JAX."""
+    frozen names. ``step`` is ``TrainState.step`` in JAX: one more per
+    update, as the optimizer's count, which it leaves only where a resume
+    sets it apart (``override_lr`` starts a fresh optimizer at the run's
+    step, ``override_step`` moves the step alone)."""
 
     def __init__(self, model: nn.Module, optimizer: AdamW,
                  frozen: Tuple[str, ...]):
         self.model = model
         self.optimizer = optimizer
         self.frozen = frozen
-
-    @property
-    def step(self) -> int:
-        return self.optimizer.count
+        self.step = 0
 
 
 def create_train_state(model: nn.Module, lr: float = 5e-5,
@@ -166,7 +166,9 @@ def make_train_step(loss: Optional[RDLoss] = None,
     if loss is None:
         loss = RDLoss()
     if grad_accum != 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet")
+        raise NotImplementedError("grad_accum > 1 is not ported yet "
+                                  "(ROADMAP.md, Queue 1, the optimizer and "
+                                  "memory levers)")
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    noise: Optional[torch.Tensor] = None,
@@ -184,6 +186,7 @@ def make_train_step(loss: Optional[RDLoss] = None,
         metrics["grad_norm"] = global_norm(
             [p.grad for p in model.parameters() if p.grad is not None])
         state.optimizer.step()
+        state.step += 1
         return {k: float(v.detach()) for k, v in metrics.items()}
 
     return train_step

@@ -1,57 +1,145 @@
 """Stage-I trainer: rate-distortion training of the codec and the one-step
-generator.
+generator, with its loop.
 
-JAX counterpart: ``onedc_tpu/train/trainer.py:93-246`` (``Trainer``,
-``_prepare_batch``, ``train_one_step``), read from the same config keys:
-``lr``, ``warmup_steps``, ``grad_clip``, ``frozen``, ``lmbda``,
-``lmbda_schedule``, ``pix_weight``, ``lpips_weight``, ``pix_loss_type``,
-``lpips_weights`` / ``allow_no_lpips``, ``batch_size``, ``resolutions``,
-``batch_scales``, ``seed``, ``optimizer``, ``fsdp``, ``grad_accum`` and
-``model``. ``lpips_weights``: a converted LPIPS file (``nn/lpips.py``),
-the avg-pool VGG of the reference's loss, held frozen beside the model.
+JAX counterpart: ``onedc_tpu/train/trainer.py`` (``save_config_snapshot``
+:43, ``load_part_ckpts`` :65, ``Trainer`` :93 with ``_prepare_batch``,
+``train_one_step``, ``eval_one_epoch`` :251, ``train`` :313, ``resume``
+:373, and ``main`` :415), read from the same config keys: ``lr``,
+``warmup_steps``, ``grad_clip``, ``frozen``, ``lmbda``, ``lmbda_schedule``,
+``pix_weight``, ``lpips_weight``, ``pix_loss_type``, ``lpips_weights`` /
+``allow_no_lpips``, ``batch_size``, ``resolutions``, ``batch_scales``,
+``seed``, ``optimizer``, ``fsdp``, ``grad_accum``, ``model``,
+``train_data`` / ``eval_data`` (image folders), ``eval_max_images``,
+``run_dir``, ``max_checkpoint``, ``log_interval``, ``save_interval``,
+``total_steps``, ``codec_ckpt`` / ``unet_ckpt_lora`` and ``override_lr`` /
+``override_step``. ``lpips_weights``: a converted LPIPS file
+(``nn/lpips.py``), the avg-pool VGG of the reference's loss, held frozen
+beside the model.
 
 Differences, by design or not yet ported:
-- batches come from an iterator of numpy ``{"image": (B, H, W, 3)}`` in
-  [-1, 1] passed to the trainer; the image-folder datasets, checkpoints,
-  eval, writers and preemption come in a later slice;
-- one device, no FSDP, AdamW only, ``grad_accum`` 1, no rematerialisation
-  (``gradient_checkpointing`` changes memory, not the result);
+- one device, no FSDP or multi-host, AdamW only, ``grad_accum`` 1, no
+  rematerialisation (``gradient_checkpointing`` changes memory, not the
+  result), the local-folder loader only (``loader: grain`` raises), no
+  codeformer; each raises where the config asks for it;
+- ``batches=`` (an iterable of numpy ``{"image": (B, H, W, 3)}`` in
+  [-1, 1]) stands in for ``train_data``;
 - the noise of the codec's bit estimate comes from a ``torch.Generator``
   seeded from ``seed + 1`` and the step, as the JAX trainer derives its
-  keys (``:222``, ``:245``); the numbers differ from ``jax.random``'s.
+  keys (``:222``, ``:245``); the numbers differ from ``jax.random``'s;
+- checkpoints are the port's safetensors files (``utils/checkpoint.py``),
+  and the writer appends to ``<run_dir>/metrics.jsonl`` and writes PNGs
+  (``utils/logging.py:RunWriter``), where JAX writes orbax trees and
+  TensorBoard summaries.
 
-The trainer runs on the card unless the caller names a device: with no
-device and no GPU it raises (``resolve_device``, as ``OneDCRuntime``). A
-step runs under ``utils.numerics.pinned_numerics`` (f32 without TF32,
-deterministic cuDNN).
+The trainer runs on the card unless the caller (or the config's
+``device``) names a device: with no device and no GPU it raises
+(``resolve_device``, as ``OneDCRuntime``). A step and an eval epoch run
+under ``utils.numerics.pinned_numerics`` (f32 without TF32, deterministic
+cuDNN).
+
+Usage:
+  python -m onedc_tpu_torch.train.trainer --config configs/train_stage1.yaml \\
+      [key.path=value ...] [--resume]
 """
 
 from __future__ import annotations
 
-import logging
-from typing import Dict, Iterable, Mapping, Optional
+import argparse
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..config import load_config
 from ..data.crops import MultiResolutionCrop, random_crop
+from ..data.datasets import DataLoader, ImageFolderDataset, cycle
 from ..models.onedc import OneDC, resolve_device
 from ..nn.lpips import load_lpips, nhwc_metric
 from ..nn.vae import hwio_conv_weights
+from ..utils.checkpoint import CheckpointManager
+from ..utils.logging import AvgDict, get_logger, make_writer
 from ..utils.numerics import pinned
+from ..utils.preempt import PreemptionGuard
 from .losses import RDLoss
-from .step import create_train_state, make_train_step
+from .step import create_train_state, make_train_step, split_frozen
 
-log = logging.getLogger("onedc_tpu_torch.train")
+log = get_logger("onedc_tpu_torch.train")
+
+# what the port's trainer does not run yet, each with where it stands in
+# ROADMAP.md's Queue 1
+_NOT_PORTED = {
+    "multihost": "multihost: multi-host training is not ported yet "
+                 "(ROADMAP.md, Queue 1, multi-GPU)",
+    "fsdp": "fsdp: multi-GPU training is not ported yet (ROADMAP.md, "
+            "Queue 1, multi-GPU)",
+    "codeformer_ckpt": "codeformer_ckpt: the Codeformer is not ported yet "
+                       "(ROADMAP.md, Queue 1, codeformer distillation)",
+}
+
+
+def save_config_snapshot(cfg: Mapping, run_dir) -> None:
+    """The resolved config as ``<run_dir>/config.yaml``: lists for tuples,
+    ``<TypeName>`` for any value YAML cannot hold (an in-memory state dict
+    given as a warm start)."""
+    import yaml
+
+    def clean(o):
+        if isinstance(o, Mapping):
+            return {k: clean(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return [clean(v) for v in o]
+        if isinstance(o, (str, int, float, bool, type(None))):
+            return o
+        return f"<{type(o).__name__}>"
+
+    run_dir = Path(run_dir)
+    run_dir.mkdir(parents=True, exist_ok=True)
+    with open(run_dir / "config.yaml", "w") as f:
+        yaml.safe_dump(clean(dict(cfg)), f, default_flow_style=False)
+
+
+def load_part_ckpts(model: OneDC, cfg: Mapping, logger) -> OneDC:
+    """Warm starts from the reference's checkpoints before training, into
+    ``model`` in place (the reference's ``load_part_ckpt``):
+    ``codec_ckpt``, the IntraNoAR state dict, every codec tensor required;
+    ``unet_ckpt_lora``, the SD1.5 UNet + LoRA state dict, partial allowed,
+    the LoRA merged at load. Each is a torch-layout safetensors file or an
+    in-memory ``{name: tensor}``; what they leave untouched keeps its
+    initial values."""
+    if cfg.get("codeformer_ckpt"):
+        raise NotImplementedError(_NOT_PORTED["codeformer_ckpt"])
+    part = dict(unet_path=cfg.get("unet_ckpt_lora"),
+                codec_path=cfg.get("codec_ckpt"))
+    if not any(part.values()):
+        return model
+    from ..utils.port_torch import port_onedc_checkpoint
+
+    logger.info("warm-start from reference checkpoints: %s",
+                {k: (v if isinstance(v, str) else f"<{type(v).__name__}>")
+                 for k, v in part.items() if v})
+    state = port_onedc_checkpoint(
+        reference=model.state_dict(),
+        require_complete=("codec",) if part["codec_path"] else (), **part)
+    model.load_state_dict(state, strict=True)
+    return model
 
 
 class Trainer:
     def __init__(self, cfg: Mapping, device=None,
                  batches: Optional[Iterable] = None):
         """The model starts from torch's default initialisation under
-        ``seed``. ``batches``: an iterable of numpy batches (see the module
-        docstring)."""
+        ``seed``, then the config's warm starts. ``device``: None takes
+        the config's ``device``, and with neither the card."""
         self.cfg = cfg
+        for key in ("multihost", "fsdp"):
+            if cfg.get(key, False):
+                raise NotImplementedError(_NOT_PORTED[key])
+        if cfg.get("loader", "simple") != "simple":
+            raise NotImplementedError(
+                f"loader: {cfg['loader']}: only the local-folder loader is "
+                f"ported (grain is not on ROADMAP.md's Queue 1)")
         if not cfg.get("lpips_weights"):
             # a config error fails before any model build
             if not cfg.get("allow_no_lpips", False):
@@ -61,10 +149,8 @@ class Trainer:
                     "changes the objective. Set lpips_weights: <path> or "
                     "allow_no_lpips: true.")
             log.warning("training WITHOUT the LPIPS term (allow_no_lpips)")
-        if cfg.get("fsdp", False):
-            raise NotImplementedError("fsdp: multi-GPU training is not "
-                                      "ported yet")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None
+                                     else cfg.get("device"))
         self.seed = int(cfg.get("seed", 0))
         # the loss's VGG: frozen, outside the model, so never in the
         # optimizer or the frozen split; gradients reach x_hat through it
@@ -75,6 +161,7 @@ class Trainer:
         torch.manual_seed(self.seed)
         with torch.device(self.device):
             model = OneDC(**dict(cfg.get("model", {})))
+        load_part_ckpts(model, cfg, log)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         # the K2 conv weights laid out HWIO once: valid because the VAE is
@@ -85,11 +172,9 @@ class Trainer:
         self.frozen = tuple(cfg.get("frozen", ("vae",)))
         if "vae" not in self.frozen:
             raise ValueError("the VAE must stay frozen")
-        self.state = create_train_state(
-            model, lr=float(cfg.get("lr", 5e-5)),
-            warmup_steps=int(cfg.get("warmup_steps", 500)),
-            grad_clip=float(cfg.get("grad_clip", 5.0)),
-            frozen=self.frozen, optimizer=cfg.get("optimizer", "adamw"))
+        self.state = self._fresh_state(float(cfg.get("lr", 5e-5)))
+        self.trainable_names = [n for n, _ in split_frozen(model,
+                                                           self.frozen)[0]]
 
         lmbda = float(cfg.get("lmbda", 1.8))
         sched = cfg.get("lmbda_schedule") or dict(
@@ -103,11 +188,43 @@ class Trainer:
         self.step_fn = make_train_step(self.loss,
                                        int(cfg.get("grad_accum", 1)))
 
+        # data
         self.batch_size = int(cfg.get("batch_size", 8))
         res = int(cfg.get("base_resolution", 512))
         self.crop = MultiResolutionCrop(cfg.get("resolutions", [res]),
                                         cfg.get("batch_scales", None))
-        self.train_iter = iter(batches) if batches is not None else None
+        self.train_loader = None
+        if batches is not None:
+            self.train_iter = iter(batches)
+        elif cfg.get("train_data"):
+            self.train_loader = DataLoader(
+                ImageFolderDataset(cfg["train_data"]), self.batch_size,
+                shuffle=True, seed=self.seed)
+            self.train_iter = cycle(self.train_loader)
+        else:
+            self.train_iter = None
+        self.eval_loader = (DataLoader(ImageFolderDataset(cfg["eval_data"]),
+                                       1)
+                            if cfg.get("eval_data") else None)
+
+        run_dir = Path(cfg.get("run_dir", "runs/stage1"))
+        self.ckpt = CheckpointManager(run_dir,
+                                      int(cfg.get("max_checkpoint", 3)))
+        save_config_snapshot(cfg, run_dir)
+        self.writer = make_writer(run_dir, cfg.get("wandb_project"))
+        self.writer.log_config(cfg)
+        self.log_interval = int(cfg.get("log_interval", 200))
+        self.save_interval = int(cfg.get("save_interval", 5000))
+        self.total_steps = int(cfg.get("total_steps", 400_000))
+
+    def _fresh_state(self, lr: float):
+        cfg = self.cfg
+        return create_train_state(
+            self.model, lr=lr, warmup_steps=int(cfg.get("warmup_steps", 500)),
+            grad_clip=float(cfg.get("grad_clip", 5.0)), frozen=self.frozen,
+            optimizer=cfg.get("optimizer", "adamw"))
+
+    # -- one training step ---------------------------------------------------
 
     def _prepare_batch(self, batch, step: int) -> Dict[str, torch.Tensor]:
         """The step's resolution and batch size (``MultiResolutionCrop.
@@ -131,9 +248,163 @@ class Trainer:
     @pinned
     def train_one_step(self, step: int) -> Dict[str, float]:
         if self.train_iter is None:
-            raise ValueError("no batches: pass an iterable of numpy batches "
-                             "(the image-folder datasets are not ported "
-                             "yet)")
+            raise ValueError("no training data: set train_data (an image "
+                             "folder) or pass batches")
         batch = self._prepare_batch(next(self.train_iter), step)
         return self.step_fn(self.state, batch,
                             generator=self.noise_generator(step))
+
+    # -- eval epoch ----------------------------------------------------------
+
+    @pinned
+    @torch.no_grad()
+    def eval_one_epoch(self, step: int, max_images=None) -> Dict[str, float]:
+        """The training objective on the eval set: the full RD loss (pixel
+        + LPIPS where configured + lambda * bpp, the lambda schedule read
+        at ``step``), ``bpp_hard_y``, ``mse`` and ``psnr``, averaged over
+        the images; the best checkpoint is chosen by its ``total_loss``.
+        Each image is cut to its top-left multiple of 64 in each side, as
+        the JAX trainer does. The whole eval loader unless
+        ``eval_max_images`` (or ``max_images``) caps it; the first image's
+        reconstruction and source go to the writer."""
+        if self.eval_loader is None:
+            return {}
+        if max_images is None:
+            max_images = self.cfg.get("eval_max_images")  # None = all
+        avg = AvgDict()
+        for i, batch in enumerate(self.eval_loader):
+            img = torch.from_numpy(batch["image"])
+            h, w = img.shape[1] // 64 * 64, img.shape[2] // 64 * 64
+            img = img[:, :h, :w].contiguous().to(self.device)
+            enc_dict, pred = self.model(img)
+            _, ld = self.loss(img, pred, enc_dict["bpp"], step=step,
+                              training=True)
+            ld["bpp_hard_y"] = enc_dict["bpp_hard_y"]
+            mse = float(torch.mean((pred - img) ** 2))
+            avg.update({k: float(v) for k, v in ld.items()})
+            avg.update({"mse": mse,
+                        "psnr": -10 * np.log10(max(mse / 4, 1e-12))})
+            if i == 0:
+                self.writer.log_image("eval/recon", pred[0].cpu().numpy(),
+                                      step)
+                self.writer.log_image("eval/gt", img[0].cpu().numpy(), step)
+            # break after the image, so a capped epoch reads no extra one
+            if max_images is not None and i + 1 >= max_images:
+                break
+        means = avg.mean()
+        self.writer.log_dict(means, step, prefix="eval")
+        return means
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def checkpoint_state(self) -> Tuple[Dict[str, torch.Tensor],
+                                        Dict[str, str]]:
+        """What a checkpoint holds, as live tensors (restore copies into
+        them): ``params/<name>`` for every parameter of the model (the
+        frozen VAE's too), ``adamw/mu/<name>`` and ``adamw/nu/<name>`` for
+        the trainable ones; and the step and the optimizer's count as
+        metadata."""
+        opt = self.state.optimizer
+        tensors = {f"params/{n}": p.data
+                   for n, p in self.model.named_parameters()}
+        for name, mu, nu in zip(self.trainable_names, opt.mu, opt.nu):
+            tensors[f"adamw/mu/{name}"] = mu
+            tensors[f"adamw/nu/{name}"] = nu
+        return tensors, {"train_step": str(self.state.step),
+                         "adamw_count": str(opt.count)}
+
+    def save_checkpoint(self, step: int, metric: Optional[float] = None):
+        """``checkpoint_state`` as the checkpoint of ``step``; its bytes and
+        seconds go to the writer (``checkpoint/bytes``, ``/save_s``)."""
+        tensors, meta = self.checkpoint_state()
+        t0 = time.perf_counter()
+        path = self.ckpt.save(tensors, step, metric, meta)
+        nbytes = sum(f.stat().st_size for f in path.iterdir())
+        self.writer.log_dict({"bytes": nbytes,
+                              "save_s": time.perf_counter() - t0}, step,
+                             prefix="checkpoint")
+        return path
+
+    # -- main loop -----------------------------------------------------------
+
+    def train(self) -> None:
+        start = int(self.state.step)
+        if start and self.train_loader is not None:
+            # resumed: fast-forward the stream, no loads
+            self.train_iter = cycle(self.train_loader, skip=start)
+        log.info("training from step %d to %d", start, self.total_steps)
+        t0 = time.perf_counter()
+        with PreemptionGuard() as preempt:
+            for step in range(start, self.total_steps):
+                metrics = self.train_one_step(step)
+                if (step + 1) % self.log_interval == 0:
+                    m = dict(metrics)
+                    dt = (time.perf_counter() - t0) / self.log_interval
+                    m["sec_per_step"] = dt
+                    t0 = time.perf_counter()
+                    self.writer.log_dict(m, step + 1, prefix="train")
+                    log.info("step %d: loss=%.4f bpp=%.4f (%.2fs/step)",
+                             step + 1, m["total_loss"], m["bpp"], dt)
+                saved = False
+                if (step + 1) % self.save_interval == 0:
+                    ev = self.eval_one_epoch(step + 1)
+                    # the best checkpoint by the full training objective
+                    self.save_checkpoint(step + 1, ev.get("total_loss"))
+                    saved = True
+                if preempt.triggered:
+                    # SIGTERM / SIGUSR1: save once and stop, so the run
+                    # resumes from this step
+                    if not saved:
+                        self.save_checkpoint(step + 1)
+                    log.info("preempted: checkpointed step %d, stopping",
+                             step + 1)
+                    break
+        self.writer.flush()
+
+    def resume(self, step: Optional[int] = None) -> int:
+        """The checkpoint of ``step`` (None: the latest) into the live
+        state, bit for bit; then ``override_lr`` (a fresh AdamW at that lr,
+        moments and count reset, the step kept) and ``override_step``.
+        Returns the checkpoint's step; the restore's seconds go to the
+        writer (``checkpoint/restore_s``)."""
+        tensors, _ = self.checkpoint_state()
+        t0 = time.perf_counter()
+        meta, restored = self.ckpt.restore(tensors, step)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.writer.log_dict({"restore_s": time.perf_counter() - t0},
+                             restored, prefix="checkpoint")
+        self.state.step = int(meta["train_step"])
+        self.state.optimizer.count = int(meta["adamw_count"])
+        if self.cfg.get("override_lr") is not None:
+            new_lr = float(self.cfg["override_lr"])
+            cur_step = self.state.step
+            self.state = self._fresh_state(new_lr)
+            self.state.step = cur_step
+            log.info("override_lr: fresh optimizer at lr=%g", new_lr)
+        if self.cfg.get("override_step") is not None:
+            self.state.step = int(self.cfg["override_step"])
+            log.info("override_step: step rewritten to %d", self.state.step)
+        log.info("resumed from step %d", restored)
+        return restored
+
+
+def main(argv=None) -> Trainer:
+    """``--config FILE [key.path=value ...] [--resume]``: build the trainer
+    (on the card unless ``device=`` names another), resume from the run
+    directory's latest checkpoint if asked, train to ``total_steps``.
+    Returns the trainer."""
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config", default=None)
+    parser.add_argument("--resume", action="store_true")
+    args, overrides = parser.parse_known_args(argv)
+    cfg = load_config(args.config, overrides)
+    trainer = Trainer(cfg)
+    if args.resume:
+        trainer.resume()
+    trainer.train()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -22,7 +22,7 @@ from __future__ import annotations
 import json
 import mmap
 import struct
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,32 +67,56 @@ def _as_tensor(value: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
 
 
 def save_safetensors(tensors: Mapping[str, Union[np.ndarray, torch.Tensor]],
-                     path) -> None:
+                     path, metadata: Optional[Mapping[str, str]] = None
+                     ) -> None:
     """Write ``{name: array or tensor}`` to ``path``, tensors in name
-    order. Raises ValueError for a dtype the format has no name for."""
-    items = []
+    order, with ``metadata`` (strings) as the header's ``__metadata__``.
+    Tensors on the card are copied to the host one at a time, as they are
+    written: a state of many GB never lies on the host whole. Raises
+    ValueError for a dtype the format has no name for."""
     offset = 0
     header: Dict[str, Any] = {}
-    for name in sorted(tensors):
-        t = _as_tensor(tensors[name])
-        if t.dtype not in _NAMES:
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in
+                                  metadata.items()}
+    names = sorted(tensors)
+    for name in names:
+        t = tensors[name]
+        dtype = t.dtype if isinstance(t, torch.Tensor) else \
+            torch.from_numpy(np.empty(0, t.dtype)).dtype
+        if dtype not in _NAMES:
             raise ValueError(f"safetensors: tensor {name!r} has dtype "
-                             f"{t.dtype}, which the format cannot hold")
-        nbytes = t.numel() * t.element_size()
-        header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
+                             f"{dtype}, which the format cannot hold")
+        numel = int(np.prod(t.shape, dtype=np.int64))
+        nbytes = numel * torch.empty((), dtype=dtype).element_size()
+        header[name] = {"dtype": _NAMES[dtype], "shape": list(t.shape),
                         "data_offsets": [offset, offset + nbytes]}
-        items.append(t)
         offset += nbytes
     blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
     blob += b" " * (-(8 + len(blob)) % _ALIGN)
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
-        for t in items:
+        for name in names:
+            t = _as_tensor(tensors[name])
             if t.numel():
                 # raw bytes without a copy: numpy has no bfloat16, so go
                 # through a same-width integer view
                 f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+
+
+def _read_header(f, path) -> Tuple[int, Dict[str, Any]]:
+    head = f.read(8)
+    if len(head) != 8:
+        raise ValueError(f"{path}: not a safetensors file")
+    (n,) = struct.unpack("<Q", head)
+    return n, json.loads(f.read(n).decode("utf-8"))
+
+
+def load_safetensors_metadata(path) -> Dict[str, str]:
+    """The ``__metadata__`` strings of a safetensors file ({} if none)."""
+    with open(path, "rb") as f:
+        return dict(_read_header(f, path)[1].get("__metadata__") or {})
 
 
 def load_safetensors(path) -> Dict[str, torch.Tensor]:
@@ -100,11 +124,7 @@ def load_safetensors(path) -> Dict[str, torch.Tensor]:
     copy-on-write mapping of the file. Raises ValueError, naming the
     tensor, for an unknown dtype or offsets that do not fit the file."""
     with open(path, "rb") as f:
-        head = f.read(8)
-        if len(head) != 8:
-            raise ValueError(f"{path}: not a safetensors file")
-        (n,) = struct.unpack("<Q", head)
-        header = json.loads(f.read(n).decode("utf-8"))
+        n, header = _read_header(f, path)
         # ACCESS_COPY: writable pages private to this process, so
         # torch.frombuffer takes them without a warning and a write to a
         # tensor never reaches the file

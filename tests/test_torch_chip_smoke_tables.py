@@ -4,8 +4,8 @@ limits on K1's row log-sum-exp (moved out of
 ``test_torch_train_step.py``, whose module fixture runs the JAX step for
 minutes, so that these run on another worker), the launches of the
 pipelined serving schedule, the w8a8 phase's quantized ops, the quality
-phase's launches and plain reference, and the training phase's LPIPS
-config."""
+phase's launches and plain reference, the training phase's LPIPS
+config, and the tiled and training-loop phases' plans and launches."""
 
 from pathlib import Path
 
@@ -293,7 +293,8 @@ def test_chip_smoke_trains_with_lpips(tmp_path):
     assert not cfg.get("allow_no_lpips")
     assert (cfg["optimizer"], cfg["frozen"], cfg["resolutions"]) == (
         "adamw", ["vae"], [512, 768])
-    tr = Trainer(dict(cfg, model=dict(TINY)), device="cpu")
+    tr = Trainer(dict(cfg, model=dict(TINY), run_dir=str(tmp_path / "run")),
+                 device="cpu")
     assert tr.lpips is not None and tr.loss.lpips_fn is not None
 
 
@@ -332,3 +333,46 @@ def test_chip_smoke_quality_reference_is_the_ports_metrics():
         assert abs(float(metrics.ms_ssim(xt, yt)[0]) - msssim) <= \
             cs.QUALITY_SSIM_TOL
         assert 0.1 < msssim < 0.99
+
+
+def test_chip_smoke_tiled_tables():
+    """The tiled phase's plan (3 rows x 6 columns of 768x768 tiles on a
+    3840x2160 image) and its launches: the encode's device chunks of
+    SERVING_CHUNK tiles, the pipelined decode of the 18 streams, the
+    768x768 pass-through's encode and decode."""
+    import chip_smoke as cs
+    from onedc_tpu_torch.parallel.tiled import plan_tiles
+
+    corners = plan_tiles(*cs.TILED_SIZE, cs.TILED_TILE, cs.TILED_OVERLAP)
+    assert len(corners) == cs.TILED_TILES == 18
+    assert sorted({y for y, _ in corners}) == [0, 704, 1392]
+    assert sorted({x for _, x in corners}) == [0, 704, 1408, 2112, 2816,
+                                               3072]
+    assert cs.tiled_launches() == {"encode": (6, 60), "decode": (30, 84),
+                                   "pass_through": (12, 48)}
+    assert cs.tiled_image(0).shape == (1, *cs.TILED_SIZE, 3)
+
+
+def test_chip_smoke_train_loop_tables(monkeypatch):
+    """The training-loop phase's launches: the steps' resolutions by
+    ``MultiResolutionCrop.pick`` (768 at steps 0-2), TRAIN_PER_STEP per
+    step, and
+    EVAL_PER_IMAGE, which the full-width model's eval forward (no
+    gradient) launches at 512x768 on meta tensors."""
+    import chip_smoke as cs
+    from onedc_tpu_torch.data.crops import MultiResolutionCrop
+    from onedc_tpu_torch.models.onedc import OneDC
+
+    crop = MultiResolutionCrop(cs.TRAIN_OVERRIDES["resolutions"],
+                               cs.TRAIN_OVERRIDES["batch_scales"])
+    assert [crop.pick(s)[0] for s in range(cs.TRAIN_LOOP_STEPS)] == \
+        [768, 768, 768]
+    assert cs.train_loop_launches() == (58, 48, 288, 112)
+    k1, k2 = _recorded_launches(monkeypatch)
+    with torch.device("meta"):
+        model = OneDC()
+    with torch.no_grad():
+        _, pred = model(torch.zeros((1, 512, 768, 3), device="meta"))
+    assert pred.shape == (1, 512, 768, 3)
+    assert (sum(k1.values()), 0, sum(k2.values()), 0) == \
+        cs.EVAL_PER_IMAGE[(512, 768)]

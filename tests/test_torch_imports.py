@@ -42,7 +42,12 @@ REACHED_MODULES = ("onedc_tpu_torch.entropy.bound", "onedc_tpu_torch.config",
                     "onedc_tpu_torch.nn.lpips",
                     "onedc_tpu_torch.nn.dists",
                     "onedc_tpu_torch.nn.inception",
-                    "onedc_tpu_torch.utils.convert_weights")
+                    "onedc_tpu_torch.utils.convert_weights",
+                    "onedc_tpu_torch.data.datasets",
+                    "onedc_tpu_torch.parallel.tiled",
+                    "onedc_tpu_torch.train.ema",
+                    "onedc_tpu_torch.utils.checkpoint",
+                    "onedc_tpu_torch.utils.preempt")
 
 
 def test_import_loads_no_jax_and_no_onedc_tpu():
@@ -63,8 +68,8 @@ def test_import_loads_no_jax_and_no_onedc_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, rest = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 56
-    # the walk reached every training and quality module
+    assert int(n_modules) >= 62
+    # the walk reached every training, quality and tiling module
     assert rest.strip() == "[] []"
 
 
@@ -112,12 +117,13 @@ def test_quality_entry_points_need_the_card_unless_told_otherwise(
                                            "rd_sweep.yaml")])
 
 
-def test_trainer_needs_the_card_unless_told_otherwise():
+def test_trainer_needs_the_card_unless_told_otherwise(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
     from __graft_entry__ import _tiny_cfg
     from onedc_tpu_torch.train.trainer import Trainer
-    cfg = {"allow_no_lpips": True, "model": _tiny_cfg()}
+    cfg = {"allow_no_lpips": True, "model": _tiny_cfg(),
+           "run_dir": str(tmp_path / "run")}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg)
     assert Trainer(cfg, device="cpu").device == torch.device("cpu")

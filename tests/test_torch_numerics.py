@@ -68,11 +68,11 @@ def test_runtime_entry_points_pin_numerics(caller_flags):
     assert numerics.current() == CALLER
 
 
-def test_trainer_step_pins_numerics(caller_flags):
+def test_trainer_step_pins_numerics(caller_flags, tmp_path):
     from onedc_tpu_torch.train.trainer import Trainer
 
     cfg = dict(allow_no_lpips=True, batch_size=1, resolutions=[64],
-               model=dict(TINY))
+               model=dict(TINY), run_dir=str(tmp_path / "run"))
     images = np.zeros((1, 64, 64, 3), np.float32)
     tr = Trainer(cfg, device="cpu", batches=iter([{"image": images}]))
     seen = []

@@ -12,14 +12,15 @@ from torch_port_common import TINY, one_torch_thread  # noqa: F401
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
-def test_trainer_steps_on_the_cpu():
+def test_trainer_steps_on_the_cpu(tmp_path):
     """``Trainer(cfg, device="cpu")`` from the stage-I keys at the tiny
     width: two steps, metrics finite, the VAE untouched, lr 0 first."""
     from onedc_tpu_torch.train.trainer import Trainer
 
     cfg = dict(allow_no_lpips=True, lr=1e-4, warmup_steps=2, batch_size=2,
                resolutions=[64, 128], batch_scales=[1.0, 0.5], seed=0,
-               optimizer="adamw", frozen=["vae"], model=dict(TINY))
+               optimizer="adamw", frozen=["vae"], model=dict(TINY),
+               run_dir=str(tmp_path / "run"))
     rng = np.random.default_rng(0)
     batches = ({"image": rng.uniform(-1, 1, (2, 160, 160, 3)).astype(
         np.float32)} for _ in range(2))
@@ -51,7 +52,7 @@ def test_trainer_steps_with_lpips_on_the_cpu(tmp_path):
     save_safetensors(random_lpips_weights(0), path)
     cfg = dict(lpips_weights=str(path), lpips_weight=0.5, lr=1e-4,
                warmup_steps=1, batch_size=1, resolutions=[64], seed=0,
-               model=dict(TINY))
+               model=dict(TINY), run_dir=str(tmp_path / "run"))
     rng = np.random.default_rng(1)
     batches = ({"image": rng.uniform(-1, 1, (1, 96, 96, 3)).astype(
         np.float32)} for _ in range(2))
