@@ -6,8 +6,9 @@
 2. Builds the CUDA kernels (nvcc, one process per source) and the rANS
    coder (g++) from the sources in this checkout.
 3. Kernel phase: each kernel against its plain PyTorch version at the
-   shapes the decode and encode paths (bf16) and the training step (f32)
-   give it, with the tolerance stated below: K1 (flash attention forward),
+   shapes the decode and encode paths (bf16) and the training steps (f32;
+   the stage-I yaml phase's larger shapes held untimed) give it, with the
+   tolerance stated below: K1 (flash attention forward),
    K1-bwd (its backward), K2 (GN-affine + SiLU + conv3x3) and K3 (conv3x3,
    K2's input gradient), and K2's autograd backward against autograd of its
    plain version; CUDA event times of the kernel (through its wrapper), the
@@ -92,7 +93,8 @@
    limits); the metric nets' rates, the host ``sqrtm`` seconds, walls and
    peak memory.
 13. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
-   overrides in ``TRAIN_OVERRIDES`` and a seeded random LPIPS file
+   overrides in ``TRAIN_OVERRIDES`` (AdamW, no Codeformer, no remat) and a
+   seeded random LPIPS file
    (``train_overrides``), full width, f32, random seeded weights, seeded
    synthetic 1024x1024 images: two steps at 512x512 (batch 2) and one at
    768x768 (batch 1). Checks finite metrics, the LPIPS term finite and
@@ -111,9 +113,22 @@
    uninterrupted run's bit for bit, device memory returns once the first
    trainer is dropped, launches as ``train_loop_launches``; checkpoint
    bytes, save and restore seconds, s/step.
-15. Prints ``{"kernels": [...]}`` (launches by path: decode, encode,
-   decode_z_only, serve, bundle, decode_w8a8, cli, quality, tiled, train,
-   train_loop), the card line and, last, the device line.
+15. Stage-I yaml phase (``stage1_yaml_path``): ``train.trainer.main`` on
+   configs/train_stage1.yaml as shipped (Adafactor, the Codeformer against
+   the frozen VQGAN, frozen [vae, vqgan], batch 8, remat) with only
+   STAGE1_OVERRIDES (no FSDP, resolutions [512, 1024]), a seeded random
+   LPIPS file and seeded 1024x1024 PNGs: STAGE1_STEPS steps at 512x512
+   batch 8 and 1024x1024 batch 2 with their s/step, peak memory and
+   launches (``stage1_per_step``: K1 and the VAE decoder's K2 launch again
+   in the backward), the first step's Codeformer CE against ln 1024, the
+   VAE and VQGAN bit-identical; a 512x512 batch-8 step without remat for
+   its peak; remat, grad_accum and Adafactor held on the card
+   (``stage1_checks``).
+16. Prints ``{"kernels": [...]}``: K1 bf16 and f32, K1-bwd, K2 bf16 and
+   f32, K3, with their launches by path (bf16: decode, encode,
+   decode_z_only, serve, bundle, decode_w8a8, cli, quality, tiled; f32:
+   train, train_loop, stage1_yaml), the card line and, last, the device
+   line.
 
 The whole run holds the numerics the package pins in its entry points
 (``onedc_tpu_torch/utils/numerics.py``).
@@ -245,15 +260,22 @@ RAGGED_K2 = [(2, 24, 40, 64, 64), (1, 20, 36, 128, 128), (1, 20, 36, 64, 192),
              (1, 48, 48, 256, 192)]
 
 # shapes the training step gives the kernels (f32), with their launches per
-# step: "train512" is a 512x512 step of batch 2, "train768" a 768x768 step
-# of batch 1. K1: the SD UNet's attn1 at /8 (and /16 at 768), the encoder
-# UNet's /16 attention (64 heads of 8) at 768; K1-bwd runs once per K1
-# launch. K2: the VAE encoder's 20 resnet convs (forward only: the encoder
-# is frozen and detached) and the decoder's 28; K3: the input gradient of
-# each of the decoder's 28, (B, H, W, Cout -> Cin) of its K2 conv.
+# forward pass: "train512" is a 512x512 step of batch 2, "train768" a
+# 768x768 step of batch 1 (the training phases, no remat: per step);
+# "stage512" and "stage1024" the stage-I yaml phase's 512x512 batch-8 and
+# 1024x1024 batch-2 steps (remat: ``stage1_per_step``). K1: the SD UNet's
+# attn1 at /8 (and /16 from 768), the encoder UNet's /16 attention (64
+# heads of 8) from 768; K1-bwd runs once per K1 launch. K2: the VAE
+# encoder's 20 resnet convs (forward only: the encoder is frozen and
+# detached) and the decoder's 28; K3: the input gradient of each of the
+# decoder's 28, (B, H, W, Cout -> Cin) of its K2 conv. The kernel phase
+# times the "train" buckets and holds the "stage" ones, untimed.
 K1_TRAIN_SHAPES = {"train512": [((2, 4096, 8, 40), 5)],
                    "train768": [((1, 9216, 8, 40), 5), ((1, 2304, 8, 80), 5),
-                                ((1, 2304, 64, 8), 2)]}
+                                ((1, 2304, 64, 8), 2)],
+                   "stage512": [((8, 4096, 8, 40), 5)],
+                   "stage1024": [((2, 16384, 8, 40), 5), ((2, 4096, 8, 80), 5),
+                                 ((2, 4096, 64, 8), 2)]}
 K2_TRAIN_SHAPES = {"train512": [((2, 64, 64, 512, 512), 18),
                                 ((2, 128, 128, 512, 512), 9),
                                 ((2, 128, 128, 256, 512), 1),
@@ -269,7 +291,23 @@ K2_TRAIN_SHAPES = {"train512": [((2, 64, 64, 512, 512), 18),
                                 ((1, 384, 384, 256, 256), 8),
                                 ((1, 384, 384, 128, 256), 1),
                                 ((1, 768, 768, 256, 128), 1),
-                                ((1, 768, 768, 128, 128), 9)]}
+                                ((1, 768, 768, 128, 128), 9)],
+                   "stage512": [((8, 64, 64, 512, 512), 18),
+                                ((8, 128, 128, 512, 512), 9),
+                                ((8, 128, 128, 256, 512), 1),
+                                ((8, 256, 256, 512, 256), 1),
+                                ((8, 256, 256, 256, 256), 8),
+                                ((8, 256, 256, 128, 256), 1),
+                                ((8, 512, 512, 256, 128), 1),
+                                ((8, 512, 512, 128, 128), 9)],
+                   "stage1024": [((2, 128, 128, 512, 512), 18),
+                                 ((2, 256, 256, 512, 512), 9),
+                                 ((2, 256, 256, 256, 512), 1),
+                                 ((2, 512, 512, 512, 256), 1),
+                                 ((2, 512, 512, 256, 256), 8),
+                                 ((2, 512, 512, 128, 256), 1),
+                                 ((2, 1024, 1024, 256, 128), 1),
+                                 ((2, 1024, 1024, 128, 128), 9)]}
 K3_TRAIN_SHAPES = {"train512": [((2, 64, 64, 512, 512), 10),
                                 ((2, 128, 128, 512, 512), 6),
                                 ((2, 256, 256, 256, 512), 1),
@@ -281,7 +319,19 @@ K3_TRAIN_SHAPES = {"train512": [((2, 64, 64, 512, 512), 10),
                                 ((1, 384, 384, 256, 512), 1),
                                 ((1, 384, 384, 256, 256), 5),
                                 ((1, 768, 768, 128, 256), 1),
-                                ((1, 768, 768, 128, 128), 5)]}
+                                ((1, 768, 768, 128, 128), 5)],
+                   "stage512": [((8, 64, 64, 512, 512), 10),
+                                ((8, 128, 128, 512, 512), 6),
+                                ((8, 256, 256, 256, 512), 1),
+                                ((8, 256, 256, 256, 256), 5),
+                                ((8, 512, 512, 128, 256), 1),
+                                ((8, 512, 512, 128, 128), 5)],
+                   "stage1024": [((2, 128, 128, 512, 512), 10),
+                                 ((2, 256, 256, 512, 512), 6),
+                                 ((2, 512, 512, 256, 512), 1),
+                                 ((2, 512, 512, 256, 256), 5),
+                                 ((2, 1024, 1024, 128, 256), 1),
+                                 ((2, 1024, 1024, 128, 128), 5)]}
 # K2's autograd backward (recompute + K3 + torch dw), one shape per level
 K2_BWD_SHAPES = [(2, 64, 64, 512, 512), (2, 128, 128, 512, 512),
                  (2, 256, 256, 256, 256), (2, 512, 512, 128, 128)]
@@ -289,11 +339,50 @@ K2_BWD_SHAPES = [(2, 64, 64, 512, 512), (2, 128, 128, 512, 512),
 TRAIN_PER_STEP = {512: (5, 5, 48, 28), 768: (12, 12, 48, 28)}
 # configs/train_stage1.yaml with these overrides (dotted keys); the phase
 # adds ``lpips_weights``, a file of seeded random LPIPS weights that it
-# writes (``nn/lpips.py:random_lpips_weights``)
+# writes (``nn/lpips.py:random_lpips_weights``). ``gradient_checkpointing``
+# off keeps these phases' steps comparable with their records from before
+# remat was ported
 TRAIN_OVERRIDES = {"optimizer": "adamw", "fsdp": False,
                    "model.use_codeformer": False, "frozen": ["vae"],
                    "batch_size": 2, "resolutions": [512, 768],
-                   "batch_scales": [1.0, 0.5], "warmup_steps": 2}
+                   "batch_scales": [1.0, 0.5], "warmup_steps": 2,
+                   "gradient_checkpointing": False}
+# the stage-I yaml phase: configs/train_stage1.yaml as shipped (Adafactor,
+# the Codeformer, frozen [vae, vqgan], batch 8, remat) with only these
+# overrides and its own LPIPS file, data folders and run directory: no
+# FSDP (one card), and the two of the yaml's resolutions at which the JAX
+# Codeformer's window divides its grid (ROADMAP.md, Queue 3). Steps 0-8:
+# MultiResolutionCrop.pick gives 1024 at 0-4 and 6, 512 at 5, 7 and 8.
+# Launches per forward pass as the "stage" buckets; per step with remat
+# ``stage1_per_step``.
+STAGE1_OVERRIDES = {"fsdp": False, "resolutions": [512, 1024],
+                    "batch_scales": [1.0, 0.25]}
+STAGE1_STEPS = 9
+STAGE1_PER_FORWARD = {512: (5, 5, 48, 28), 1024: (12, 12, 48, 28)}
+STAGE1_TRAIN_IMAGES = 8
+# the stage-I phase's checks on one batch of two 512x512 images, relative
+# L2 over all the gradients together: remat against no remat, and
+# grad_accum 2 against the mean of its two micro-batches run alone (the
+# same arithmetic in both pairs; the run-to-run spread without remat is
+# printed beside them: a run is not bit-stable where a reduction's order
+# varies, and a flipped rounding of y in the codec moves the gradients by
+# more than the ulp that flipped it; on an H100 1.75e-6 spread, 6.7e-6 and
+# 1.9e-5), their metrics relative (9.2e-6); grad_accum 2 against one batch
+# of 2, whose convs take other algorithms than a batch of 1: the random
+# weights amplify those roundings (the x0 recovery divides by 0.069, and
+# batch rows of a decode differ by 3.1e-2, the BATCH_* limits above), on
+# an H100 2.0-2.7e-2 on the gradients and 2.8e-4 to 3.5e-3 on the metrics
+# over three readings; an accumulation that drops its 1/N is off by 1 and
+# one that drops a micro-batch by about 0.7. One Adafactor update on the
+# card against the CPU, relative to the update's norm, at a learning rate
+# of 1 (1.5e-5 at the run's 5e-5 on an H100, where the parameters' own
+# rounding dominates the difference).
+STAGE1_REMAT_TOL = 1e-4
+STAGE1_MICRO_TOL = 1e-4
+STAGE1_MICRO_METRIC_TOL = 1e-4
+STAGE1_ACCUM_TOL = 0.1
+STAGE1_ACCUM_METRIC_TOL = 1e-2
+STAGE1_ADAFACTOR_TOL = 1e-5
 FIRST_ATTN1 = ("unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1."
                "to_q.weight")
 # the cli phase's Kodak-sized serving set: 24 images, 18 landscape (512x768)
@@ -608,9 +697,41 @@ def sdpa_bwd_timer(q, k, v, dout, scale):
                                        retain_graph=True)
 
 
+def plain_by_heads(fn, *args, group: int = 2):
+    """A plain attention version run on ``group`` heads at a time and
+    joined: per head the same arithmetic, and only ``group`` heads' f32
+    score matrices live at once (at 16384 tokens one head's is 1 GiB per
+    image). (B, N, H, D) tensors split on axis 2, (B, H, N) ones (the LSE)
+    on axis 1; other arguments pass as they are."""
+    heads = next(a.shape[2] for a in args
+                 if torch.is_tensor(a) and a.dim() == 4)
+
+    def part(a, h0):
+        if not torch.is_tensor(a):
+            return a
+        return a[:, :, h0:h0 + group] if a.dim() == 4 else a[:, h0:h0 + group]
+
+    outs = [fn(*(part(a, h0) for a in args))
+            for h0 in range(0, heads, group)]
+
+    def join(ts):
+        return torch.cat(ts, dim=2 if ts[0].dim() == 4 else 1)
+
+    if isinstance(outs[0], tuple):
+        return tuple(join(list(t)) for t in zip(*outs))
+    return join(outs)
+
+
+def timed_bucket(bucket: str) -> bool:
+    """The kernel phase times the training phases' buckets; it holds the
+    stage-I phase's larger ones untimed."""
+    return bucket.startswith("train")
+
+
 def check_k1_train(gen: torch.Generator):
     """K1 (f32, with the row log-sum-exp) and K1-bwd at the training
-    shapes: (forward rows, backward rows)."""
+    shapes: (forward rows, backward rows). The plain versions run
+    ``plain_by_heads``."""
     from onedc_tpu_torch.ops import flash_attention as k1
 
     fwd_rows, bwd_rows = [], []
@@ -623,13 +744,15 @@ def check_k1_train(gen: torch.Generator):
             scale = d ** -0.5
             tag = f"{bucket} {shape}"
             out, lse = k1.flash_attention_cuda(q, k, v, scale, with_lse=True)
-            out_plain = k1.attention_plain(q, k, v, scale)
+            out_plain = plain_by_heads(k1.attention_plain, q, k, v, scale)
             errs = compare(f"K1 f32 {tag}", out, out_plain,
-                           k1.attention_plain(q, k[:, 64:], v[:, 64:], scale))
-            lse_plain = k1.attention_lse_plain(q, k, scale)
+                           plain_by_heads(k1.attention_plain, q, k[:, 64:],
+                                          v[:, 64:], scale))
+            lse_plain = plain_by_heads(k1.attention_lse_plain, q, k, scale)
             lse_rms, lse_max = lse_errs(lse, lse_plain)
             m_rms, m_max = lse_errs(
-                k1.attention_lse_plain(q, k[:, 64:], scale), lse_plain)
+                plain_by_heads(k1.attention_lse_plain, q, k[:, 64:], scale),
+                lse_plain)
             print(f"K1 f32 {tag}: lse - plain: root mean square "
                   f"{lse_rms:.3e} (tol {LSE_RMS_TOL}), max {lse_max:.3e} (tol "
                   f"{LSE_MAX_TOL}); one block step left out: {m_rms:.3e}, "
@@ -640,38 +763,41 @@ def check_k1_train(gen: torch.Generator):
                 raise AssertionError(f"K1 {tag}: the lse limits cannot tell a "
                                      f"kernel that skips one block step")
             errs.update(lse_rms_err=lse_rms, lse_max_err=lse_max)
-            ms = cuda_ms(lambda: k1.flash_attention_cuda(q, k, v, scale,
-                                                         with_lse=True))
-            plain = cuda_ms(lambda: k1.attention_plain(q, k, v, scale),
-                            iters=3)
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
-            # SDPA in bf16 on the bf16-rounded operands: the arithmetic the
-            # kernel does (bf16 products, f32 sums)
-            qt, kt, vt = (t.to(torch.bfloat16) for t in (qt, kt, vt))
-            lib_bf16 = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
-            del qt, kt, vt
             bnd, by = attention_bound(b, n, h, d, 4, lse=True)
             fwd_rows.append(dict(bucket=bucket, shape=list(shape),
-                                 count=count, **errs, ms=ms, plain_ms=plain,
-                                 library_ms=lib, library_bf16_ms=lib_bf16,
-                                 bound_ms=bnd, bound_by=by))
-            print(f"K1 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
-                  f"{plain:.4f} sdpa {lib:.4f} sdpa-bf16 {lib_bf16:.4f} bound "
-                  f"{bnd:.4f} ({by})", flush=True)
+                                 count=count, **errs, bound_ms=bnd,
+                                 bound_by=by))
+            if timed_bucket(bucket):
+                ms = cuda_ms(lambda: k1.flash_attention_cuda(q, k, v, scale,
+                                                             with_lse=True))
+                plain = cuda_ms(lambda: k1.attention_plain(q, k, v, scale),
+                                iters=3)
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                lib = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
+                # SDPA in bf16 on the bf16-rounded operands: the arithmetic
+                # the kernel does (bf16 products, f32 sums)
+                qt, kt, vt = (t.to(torch.bfloat16) for t in (qt, kt, vt))
+                lib_bf16 = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
+                del qt, kt, vt
+                fwd_rows[-1].update(ms=ms, plain_ms=plain, library_ms=lib,
+                                    library_bf16_ms=lib_bf16)
+                print(f"K1 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
+                      f"{plain:.4f} sdpa {lib:.4f} sdpa-bf16 {lib_bf16:.4f} "
+                      f"bound {bnd:.4f} ({by})", flush=True)
 
             # the kernel takes the forward kernel's out and lse (di from
             # them as autograd passes it, ``bwd_di``); the plain backward
             # the plain ones, so a wrong lse shows here too
             di = k1.bwd_di(out, dout)
             grads = k1.flash_attention_bwd_cuda(q, k, v, dout, lse, di, scale)
-            refs = k1.attention_bwd_plain(q, k, v, out_plain, dout, lse_plain,
-                                          scale)
-            skip_key = k1.attention_bwd_plain(q, k[:, 64:], v[:, 64:],
-                                              out_plain, dout, lse_plain,
-                                              scale)
-            skip_query = k1.attention_bwd_plain(
-                q[:, 64:], k, v, out_plain[:, 64:], dout[:, 64:],
+            bwd_plain = k1.attention_bwd_plain
+            refs = plain_by_heads(bwd_plain, q, k, v, out_plain, dout,
+                                  lse_plain, scale)
+            skip_key = plain_by_heads(bwd_plain, q, k[:, 64:], v[:, 64:],
+                                      out_plain, dout, lse_plain, scale)
+            skip_query = plain_by_heads(
+                bwd_plain, q[:, 64:], k, v, out_plain[:, 64:], dout[:, 64:],
                 lse_plain[..., 64:], scale)
             mutants = (skip_key[0], skip_query[1], skip_query[2])
             all_errs = [compare(f"K1-bwd {name} {tag}", g, r, m)
@@ -688,13 +814,6 @@ def check_k1_train(gen: torch.Generator):
                   f"dK, dV", flush=True)
             del grads, again
             torch.cuda.empty_cache()
-            ms = cuda_ms(lambda: k1.flash_attention_bwd_cuda(
-                q, k, v, dout, lse, di, scale))
-            plain = cuda_ms(lambda: k1.attention_bwd_plain(
-                q, k, v, out, dout, lse, scale), iters=2, warmup=1)
-            lib = cuda_ms(sdpa_bwd_timer(q, k, v, dout, scale))
-            lib_bf16 = cuda_ms(sdpa_bwd_timer(
-                *(t.to(torch.bfloat16) for t in (q, k, v, dout)), scale))
             bnd, by = attention_bound(b, n, h, d, 4, backward=True)
             bwd_rows.append(dict(
                 bucket=bucket, shape=list(shape), count=count,
@@ -702,11 +821,20 @@ def check_k1_train(gen: torch.Generator):
                 rel_l2_err=max(e["rel_l2_err"] for e in all_errs),
                 rel_max_err=max(e["rel_max_err"] for e in all_errs),
                 mutant_rel_l2=min(e["mutant_rel_l2"] for e in all_errs),
-                ms=ms, plain_ms=plain, library_ms=lib,
-                library_bf16_ms=lib_bf16, bound_ms=bnd, bound_by=by))
-            print(f"K1-bwd {tag} x{count}: kernel {ms:.4f} ms plain "
-                  f"{plain:.4f} sdpa-bwd {lib:.4f} sdpa-bwd-bf16 "
-                  f"{lib_bf16:.4f} bound {bnd:.4f} ({by})", flush=True)
+                bound_ms=bnd, bound_by=by))
+            if timed_bucket(bucket):
+                ms = cuda_ms(lambda: k1.flash_attention_bwd_cuda(
+                    q, k, v, dout, lse, di, scale))
+                plain = cuda_ms(lambda: k1.attention_bwd_plain(
+                    q, k, v, out, dout, lse, scale), iters=2, warmup=1)
+                lib = cuda_ms(sdpa_bwd_timer(q, k, v, dout, scale))
+                lib_bf16 = cuda_ms(sdpa_bwd_timer(
+                    *(t.to(torch.bfloat16) for t in (q, k, v, dout)), scale))
+                bwd_rows[-1].update(ms=ms, plain_ms=plain, library_ms=lib,
+                                    library_bf16_ms=lib_bf16)
+                print(f"K1-bwd {tag} x{count}: kernel {ms:.4f} ms plain "
+                      f"{plain:.4f} sdpa-bwd {lib:.4f} sdpa-bwd-bf16 "
+                      f"{lib_bf16:.4f} bound {bnd:.4f} ({by})", flush=True)
             del q, k, v, dout, out, lse, di, out_plain, lse_plain
             torch.cuda.empty_cache()
     return fwd_rows, bwd_rows
@@ -754,6 +882,12 @@ def check_k2_k3_train(gen: torch.Generator):
                 k2.affine_silu_conv3x3_plain(x, mul, add, w, bias),
                 k2.affine_silu_conv3x3_plain(x, mul, add, w_skip, bias))
             del w_skip
+            bnd, by = _conv_bound(*shape, 4, True)
+            k2_rows.append(dict(bucket=bucket, shape=list(shape), count=count,
+                                **errs, bound_ms=bnd, bound_by=by))
+            if not timed_bucket(bucket):
+                del x, mul, add, w, bias
+                continue
             t = torch.nn.functional.silu(
                 x * mul[:, None, None, :] + add[:, None, None, :]
             ).permute(0, 3, 1, 2)  # channels_last NCHW
@@ -766,11 +900,8 @@ def check_k2_k3_train(gen: torch.Generator):
             lib = cuda_ms(lambda: conv(t, w_oihw, bias, padding=1))
             t, w_oihw, bias_b = t.to(bf16), w_oihw.to(bf16), bias.to(bf16)
             lib_bf16 = cuda_ms(lambda: conv(t, w_oihw, bias_b, padding=1))
-            bnd, by = _conv_bound(*shape, 4, True)
-            k2_rows.append(dict(bucket=bucket, shape=list(shape), count=count,
-                                **errs, ms=ms, plain_ms=plain,
-                                library_ms=lib, library_bf16_ms=lib_bf16,
-                                bound_ms=bnd, bound_by=by))
+            k2_rows[-1].update(ms=ms, plain_ms=plain, library_ms=lib,
+                               library_bf16_ms=lib_bf16)
             print(f"K2 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
                   f"{plain:.4f} cudnn {lib:.4f} cudnn-bf16 {lib_bf16:.4f} "
                   f"bound {bnd:.4f} ({by})", flush=True)
@@ -790,6 +921,12 @@ def check_k2_k3_train(gen: torch.Generator):
                            k2.conv3x3_dx_plain(g, w),
                            k2.conv3x3_dx_plain(g, w_skip))
             del w_skip
+            bnd, by = _conv_bound(*shape, 4, False)
+            k3_rows.append(dict(bucket=bucket, shape=list(shape), count=count,
+                                **errs, bound_ms=bnd, bound_by=by))
+            if not timed_bucket(bucket):
+                del g, w
+                continue
             g_cl = g.permute(0, 3, 1, 2)
             w_oihw = k2.flip_weights(w).permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
@@ -798,11 +935,8 @@ def check_k2_k3_train(gen: torch.Generator):
             lib = cuda_ms(lambda: conv(g_cl, w_oihw, padding=1))
             g_cl, w_oihw = g_cl.to(bf16), w_oihw.to(bf16)
             lib_bf16 = cuda_ms(lambda: conv(g_cl, w_oihw, padding=1))
-            bnd, by = _conv_bound(*shape, 4, False)
-            k3_rows.append(dict(bucket=bucket, shape=list(shape), count=count,
-                                **errs, ms=ms, plain_ms=plain,
-                                library_ms=lib, library_bf16_ms=lib_bf16,
-                                bound_ms=bnd, bound_by=by))
+            k3_rows[-1].update(ms=ms, plain_ms=plain, library_ms=lib,
+                               library_bf16_ms=lib_bf16)
             print(f"K3 f32 {tag} x{count}: kernel {ms:.4f} ms plain "
                   f"{plain:.4f} cudnn {lib:.4f} cudnn-bf16 {lib_bf16:.4f} "
                   f"bound {bnd:.4f} ({by})", flush=True)
@@ -2131,6 +2265,25 @@ def train_loop_launches():
     return tuple(map(sum, zip(*per)))
 
 
+def stage1_per_step(res: int):
+    """(K1, K1-bwd, K2, K3) launches of one stage-I yaml step under remat:
+    the forward's (STAGE1_PER_FORWARD), and the recompute of what autograd
+    records launches K1 and the VAE decoder's K2 (one per K3) again."""
+    k1, k1_bwd, k2, k3 = STAGE1_PER_FORWARD[res]
+    return 2 * k1, k1_bwd, k2 + k3, k3
+
+
+def stage1_launches():
+    """(K1, K1-bwd, K2, K3) of the stage-I yaml phase's STAGE1_STEPS steps,
+    each at the resolution ``MultiResolutionCrop.pick`` gives it."""
+    from onedc_tpu_torch.data.crops import MultiResolutionCrop
+
+    crop = MultiResolutionCrop(STAGE1_OVERRIDES["resolutions"],
+                               STAGE1_OVERRIDES["batch_scales"])
+    per = [stage1_per_step(crop.pick(s)[0]) for s in range(STAGE1_STEPS)]
+    return tuple(map(sum, zip(*per)))
+
+
 def check_release_loaded(model, probes: dict) -> float:
     """Each RELEASE_PROBES tensor of ``model`` (bf16 on the card) against
     the twins' values: within bf16's rounding (2^-8 of the largest
@@ -3009,6 +3162,360 @@ def train_loop_path(seed: int):
     return {"K1": got[0], "K1-bwd": got[1], "K2": got[2], "K3": got[3]}
 
 
+class _NoUpdate:
+    """An optimizer that applies nothing: a step's gradients stay in
+    ``.grad`` for the stage-I phase's checks."""
+
+    count = 0
+
+    def step(self) -> None:
+        pass
+
+
+def _grad_copies(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _grad_rel_l2(got: dict, want: dict):
+    """(||got - want|| / ||want|| over all the tensors together, tensors
+    bit-identical, tensors); the same names on both sides."""
+    if sorted(got) != sorted(want):
+        raise AssertionError("the gradients cover other parameters")
+    diff = sum(float((got[n].double() - want[n].double()).pow(2).sum())
+               for n in want)
+    norm = sum(float(want[n].double().pow(2).sum()) for n in want)
+    same = sum(bool(torch.equal(got[n], want[n])) for n in want)
+    return (diff / norm) ** 0.5, same, len(want)
+
+
+def adafactor_card_against_cpu(model, names, cfg) -> float:
+    """One Adafactor update of the parameters ``names`` (their live values
+    and gradients) on the card and on the CPU, at a learning rate of 1 (at
+    the run's 5e-5 a parameter's own rounding, 1 ulp of p, is 1e-4 of the
+    step: p - lr * u then rounds the same update differently on the two
+    sides): the largest relative L2 of the two steps' difference and of
+    the two states' difference."""
+    from onedc_tpu_torch.train.step import Adafactor
+
+    named = dict(model.named_parameters())
+    sides = {}
+    for device in ("cuda", "cpu"):
+        params = []
+        for n in names:
+            p = torch.nn.Parameter(named[n].detach().to(device, copy=True))
+            p.grad = named[n].grad.detach().to(device, copy=True)
+            params.append(p)
+        opt = Adafactor(params, 1.0, int(cfg["warmup_steps"]),
+                        float(cfg["grad_clip"]))
+        opt.count = int(cfg["warmup_steps"])
+        before = [p.detach().clone() for p in params]
+        opt.step()
+        sides[device] = ([(p.detach() - b).cpu() for p, b in
+                          zip(params, before)],
+                         [t.cpu() for t in opt.named_state(names).values()])
+    worst = 0.0
+    for got, want in zip(sides["cuda"], sides["cpu"]):
+        for a, b in zip(got, want):
+            worst = max(worst, ((a - b).norm() / b.norm()).item())
+    print(f"stage1: Adafactor update of {len(names)} tensors ({names}) on "
+          f"the card against the CPU: largest relative L2 {worst:.3e} (tol "
+          f"{STAGE1_ADAFACTOR_TOL})", flush=True)
+    if not worst <= STAGE1_ADAFACTOR_TOL:
+        raise AssertionError("an Adafactor update on the card disagrees with "
+                             "the CPU's")
+    return worst
+
+
+def stage1_checks(trainer, seed: int) -> dict:
+    """The stage-I phase's checks on one batch of two seeded 512x512 images
+    with one noise draw, the gradients read with an optimizer that applies
+    nothing: remat against no remat (and no remat against itself, the
+    card's run-to-run spread); ``grad_accum`` 2 against the mean of its
+    micro-batches run alone and against one batch of 2; then one Adafactor
+    update on the card against the CPU."""
+    from onedc_tpu_torch.train.step import TrainState, make_train_step
+
+    model = trainer.model
+    images = torch.from_numpy(next(synthetic_batches(seed + 13, 2, 512))[
+        "image"]).to("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    noise = model.bit_noise(images, gen)
+    state = TrainState(model, _NoUpdate(), trainer.frozen)
+    weight, mse_weight = trainer.codeformer_weights
+
+    def grads_of(remat: bool, accum: int = 1, rows=slice(None)):
+        step = make_train_step(trainer.loss, accum, remat=remat,
+                               codeformer_loss_weight=weight,
+                               codeformer_mse_weight=mse_weight)
+        metrics = step(state, {"image": images[rows]}, noise=noise[rows])
+        return metrics, _grad_copies(model)
+
+    m_plain, plain = grads_of(remat=False)
+    _, again = grads_of(remat=False)
+    spread, same_again, n = _grad_rel_l2(again, plain)
+    del again
+    m_remat, remat = grads_of(remat=True)
+    remat_err, same_remat, _ = _grad_rel_l2(remat, plain)
+    print(f"stage1: gradients with remat against without, 512x512 batch 2: "
+          f"relative L2 {remat_err:.3e} (tol {STAGE1_REMAT_TOL}), "
+          f"{same_remat} of {n} tensors bit-identical; without remat twice: "
+          f"{spread:.3e}, {same_again} of {n} bit-identical", flush=True)
+    if not remat_err <= STAGE1_REMAT_TOL:
+        raise AssertionError("remat changes the gradients")
+    del plain
+    m_accum, accum = grads_of(remat=True, accum=2)
+    accum_err, _, _ = _grad_rel_l2(accum, remat)
+    keys = ("total_loss", "pix", "lpips", "bpp", "codeformer_ce_loss",
+            "codeformer_mse_loss", "grad_norm")
+    metric_errs = {k: abs(m_accum[k] - m_remat[k]) / abs(m_remat[k])
+                   for k in keys}
+    metric_err = max(metric_errs.values())
+    del remat
+    singles = [grads_of(remat=True, rows=slice(i, i + 1)) for i in (0, 1)]
+    mean = {n: (singles[0][1][n] + singles[1][1][n]) * 0.5
+            for n in singles[0][1]}
+    micro_err, same_micro, _ = _grad_rel_l2(accum, mean)
+    micro_metric_err = max(
+        abs(m_accum[k] - (singles[0][0][k] + singles[1][0][k]) / 2)
+        / abs(m_accum[k]) for k in keys if k != "grad_norm")
+    del singles, mean, accum
+    print(f"stage1: grad_accum 2 against the mean of its micro-batches run "
+          f"alone: gradients relative L2 {micro_err:.3e} (tol "
+          f"{STAGE1_MICRO_TOL}), {same_micro} of {n} tensors bit-identical, "
+          f"metrics relative {micro_metric_err:.3e} (tol "
+          f"{STAGE1_MICRO_METRIC_TOL}); against one batch of 2: gradients "
+          f"{accum_err:.3e} (tol {STAGE1_ACCUM_TOL}), metrics "
+          f"{metric_err:.3e} (tol {STAGE1_ACCUM_METRIC_TOL}), by metric "
+          f"{json.dumps(metric_errs)}; no-remat metrics "
+          f"{json.dumps(m_plain)}", flush=True)
+    if not (micro_err <= STAGE1_MICRO_TOL
+            and micro_metric_err <= STAGE1_MICRO_METRIC_TOL
+            and accum_err <= STAGE1_ACCUM_TOL
+            and metric_err <= STAGE1_ACCUM_METRIC_TOL):
+        raise AssertionError("grad_accum 2 disagrees with its micro-batches "
+                             "or with one batch of 2")
+    # a factored conv, a factored dense layer, the Swin position embedding
+    # (factored, 256 x 256), an unfactored depthwise conv and a bias
+    names = ["unet.down_blocks_1.resnets_0.conv1.weight",
+             "unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1."
+             "to_q.weight",
+             "codeformer.swin0.block_w.attn.pos_embedding",
+             "codec.y_spatial_prior_adaptor_1.dc.depth_conv.weight",
+             "unet.down_blocks_0.resnets_0.conv1.bias"]
+    worst = adafactor_card_against_cpu(model, names, trainer.cfg)
+    model.zero_grad(set_to_none=True)
+    return dict(remat_rel_l2=remat_err, remat_bit_identical=same_remat,
+                no_remat_spread=spread, tensors=n, micro_rel_l2=micro_err,
+                micro_bit_identical=same_micro,
+                micro_metric_rel=micro_metric_err, accum_rel_l2=accum_err,
+                accum_metric_rel=metric_err, adafactor_rel_l2=worst)
+
+
+def stage1_yaml_path(seed: int):
+    """The stage-I yaml phase: ``train.trainer.main`` on
+    configs/train_stage1.yaml as shipped (Adafactor, the Codeformer with
+    frozen [vae, vqgan], batch 8, remat, the Codeformer loss weights), with
+    STAGE1_OVERRIDES, a seeded random LPIPS file, STAGE1_TRAIN_IMAGES seeded
+    1024x1024 training PNGs, no eval folder and a temporary run directory:
+    STAGE1_STEPS steps at 512x512 batch 8 and 1024x1024 batch 2, seen
+    through a wrapper of ``Trainer.train_one_step`` (s/step, peak memory,
+    launches as ``stage1_per_step``, finite metrics, the first step's
+    Codeformer CE against ln 1024, the frozen VAE and VQGAN bit-identical
+    across the steps). Then, on the same trainer: 512x512 batch-8 steps
+    with remat, without it and with it again, each from freed gradients
+    and an emptied cache, for remat's peak and time at one point of the
+    process (an OOM is reported, not raised), and ``stage1_checks``. Returns each kernel's launches over ``main``'s steps
+    and the phase's records."""
+    from onedc_tpu_torch.data.crops import MultiResolutionCrop
+    from onedc_tpu_torch.data.images import save_image
+    from onedc_tpu_torch.nn.lpips import random_lpips_weights
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.train import trainer as tr
+    from onedc_tpu_torch.train.step import make_train_step
+    from onedc_tpu_torch.utils.safetensors import save_safetensors
+
+    counters = ((k1, "launches"), (k1, "bwd_launches"), (k2, "launches"),
+                (k2, "conv_launches"))
+    crop = MultiResolutionCrop(STAGE1_OVERRIDES["resolutions"],
+                               STAGE1_OVERRIDES["batch_scales"])
+    records, frozen_before, remat = [], {}, [True]
+    step_fn = tr.Trainer.train_one_step
+
+    def observed(self, step):
+        if not records:
+            frozen_before.update(
+                {n: p.detach().clone() for n, p in
+                 self.model.named_parameters()
+                 if n.split(".")[0] in ("vae", "vqgan")})
+        before = tuple(getattr(m, a) for m, a in counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = step_fn(self, step)
+        torch.cuda.synchronize()
+        res, scale = crop.pick(step)
+        records.append(dict(
+            step=step, res=res, batch=max(1, round(self.batch_size * scale)),
+            wall_s=time.perf_counter() - t0,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=tuple(getattr(m, a) - b
+                           for (m, a), b in zip(counters, before)),
+            remat=remat[0], **metrics))
+        r = records[-1]
+        print(f"stage1 step {step} ({res}x{res} batch {r['batch']}, remat "
+              f"{r['remat']}): {r['wall_s']:.3f} s, peak {r['peak_gib']:.2f}"
+              f" GiB, K1/K1-bwd/K2/K3 launches {r['launches']}; "
+              + json.dumps(metrics), flush=True)
+        return metrics
+
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_stage1_"))
+    try:
+        rng = np.random.default_rng(seed + 17)
+        (tmp / "train").mkdir()
+        for i in range(STAGE1_TRAIN_IMAGES):
+            img = next(synthetic_batches(int(rng.integers(1 << 30)), 1,
+                                         1024))["image"][0]
+            save_image(img, tmp / "train" / f"train{i}.png")
+        save_safetensors(random_lpips_weights(seed), tmp / "lpips.safetensors")
+        overrides = dict(STAGE1_OVERRIDES,
+                         lpips_weights=str(tmp / "lpips.safetensors"),
+                         train_data=str(tmp / "train"), eval_data=None,
+                         run_dir=str(tmp / "run"), total_steps=STAGE1_STEPS,
+                         log_interval=1)
+        for key, value in overrides.items():
+            print(f"stage1 override: {key} = {value!r}", flush=True)
+        argv = ["--config", "configs/train_stage1.yaml"] + [
+            f"{k}={json.dumps(v)}" for k, v in overrides.items()]
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        tr.Trainer.train_one_step = observed
+        try:
+            trainer = tr.main(argv)
+        finally:
+            tr.Trainer.train_one_step = step_fn
+        got = tuple(getattr(m, a) for m, a in counters)
+        cfg = trainer.cfg
+        opt = trainer.state.optimizer
+        state_bytes = sum(t.numel() * t.element_size() for t in
+                          opt.named_state(trainer.trainable_names).values())
+        trainable_bytes = sum(p.numel() * p.element_size()
+                              for p in opt.params)
+        print(f"stage1: optimizer {type(opt).__name__}, frozen "
+              f"{trainer.frozen}, gradient_checkpointing "
+              f"{cfg.get('gradient_checkpointing', True)}, codeformer "
+              f"weights {trainer.codeformer_weights}; its state "
+              f"{state_bytes} bytes for {len(opt.params)} trainable tensors "
+              f"of {trainable_bytes} bytes (AdamW's two moments: "
+              f"{2 * trainable_bytes})", flush=True)
+        if (type(trainer.state.optimizer).__name__ != "Adafactor"
+                or trainer.frozen != ("vae", "vqgan")
+                or not cfg["model"]["use_codeformer"]):
+            raise AssertionError("the phase does not run the yaml's recipe")
+        for r in records:
+            if r["launches"] != stage1_per_step(r["res"]):
+                raise AssertionError(f"step {r['step']}: launches "
+                                     f"{r['launches']}, expected "
+                                     f"{stage1_per_step(r['res'])}")
+            bad = {k: v for k, v in r.items()
+                   if isinstance(v, float) and not np.isfinite(v)}
+            if bad:
+                raise AssertionError(f"step {r['step']}: {bad}")
+            if not r["lpips"] > 0:
+                raise AssertionError(f"step {r['step']}: lpips {r['lpips']}")
+        ce = records[0]["codeformer_ce_loss"]
+        print(f"stage1: first step's codeformer_ce_loss {ce:.4f}, ln 1024 = "
+              f"{np.log(1024):.4f}", flush=True)
+        if not 2.0 < ce < 20.0:
+            raise AssertionError(f"codeformer_ce_loss {ce}")
+        named = dict(trainer.model.named_parameters())
+        moved = [n for n, t in frozen_before.items()
+                 if not torch.equal(t, named[n])]
+        if moved:
+            raise AssertionError(f"frozen tensors moved: {moved[:4]}")
+        n_vqgan = sum(n.startswith("vqgan.") for n in frozen_before)
+        print(f"stage1: VAE and VQGAN, all {len(frozen_before)} tensors "
+              f"({n_vqgan} of the VQGAN), bit-identical after "
+              f"{len(records)} steps", flush=True)
+        frozen_before.clear()
+        # the optimizer's share of a step: one more Adafactor update on
+        # the last step's gradients, timed alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+        print(f"stage1: one Adafactor update of the {len(opt.params)} "
+              f"trainable tensors: {update_s * 1e3:.1f} ms", flush=True)
+        want = stage1_launches()
+        if got != want:
+            raise AssertionError(f"stage1 launches {got}, expected {want}")
+
+        # remat's memory: 512x512 batch-8 steps at one point of the
+        # process, with remat, without it and with it again, each from
+        # freed gradients and an emptied cache (the peak is reset in
+        # ``observed``); without remat the launches are the forward's
+        # alone (no recompute)
+        step512 = next(s for s in range(STAGE1_STEPS, STAGE1_STEPS + 64)
+                       if crop.pick(s)[0] == 512)
+        paired = {}
+        for key, on in (("remat", True), ("no_remat", False),
+                        ("remat_again", True)):
+            trainer.step_fn = make_train_step(
+                trainer.loss, trainer.grad_accum, remat=on,
+                codeformer_loss_weight=trainer.codeformer_weights[0],
+                codeformer_mse_weight=trainer.codeformer_weights[1])
+            remat[0] = on
+            trainer.model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            try:
+                observed(trainer, step512)
+            except torch.cuda.OutOfMemoryError as err:
+                print(f"stage1: a 512x512 batch-8 step with remat {on} runs "
+                      f"out of the card's memory: "
+                      f"{str(err).splitlines()[0]}", flush=True)
+                continue
+            paired[key] = records[-1]
+            expected = (stage1_per_step(512) if on
+                        else STAGE1_PER_FORWARD[512])
+            if paired[key]["launches"] != expected:
+                raise AssertionError(f"{key} step: launches "
+                                     f"{paired[key]['launches']}, expected "
+                                     f"{expected}")
+        trainer.model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        checks = stage1_checks(trainer, seed)
+    finally:
+        shutil.rmtree(tmp)
+    del trainer
+    torch.cuda.empty_cache()
+    by_res = {}
+    for r in records[:STAGE1_STEPS]:
+        by_res.setdefault(r["res"], []).append(r)
+    summary = {res: dict(batch=rs[0]["batch"],
+                         s_per_step=[round(r["wall_s"], 4) for r in rs],
+                         peak_gib=max(r["peak_gib"] for r in rs))
+               for res, rs in by_res.items()}
+    print(f"stage1: by resolution {json.dumps(summary)}", flush=True)
+    print("stage1: 512x512 batch 8 at one point of the process, peak and "
+          "wall: " + "; ".join(
+              f"{key} " + (f"{paired[key]['peak_gib']:.4f} GiB, "
+                           f"{paired[key]['wall_s']:.3f} s"
+                           if key in paired else "out of memory")
+              for key in ("remat", "no_remat", "remat_again")), flush=True)
+    print("stage1 records " + json.dumps(dict(
+        steps=records, by_resolution=summary, checks=checks,
+        paired_512={k: dict(peak_gib=r["peak_gib"], wall_s=r["wall_s"])
+                    for k, r in paired.items()},
+        adafactor_update_s=update_s, optimizer_state_bytes=state_bytes,
+        trainable_bytes=trainable_bytes)), flush=True)
+    print(f"stage1: K1/K1-bwd/K2/K3 launches {got}, expected {want}",
+          flush=True)
+    return {"K1": got[0], "K1-bwd": got[1], "K2": got[2], "K3": got[3]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3109,35 +3616,48 @@ def main():
         train_loop = train_loop_path(args.seed)
         print(f"training-loop phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        stage1 = stage1_yaml_path(args.seed)
+        print(f"stage-I yaml phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
+    # the bf16 kernels run on the serving paths, the f32 ones on the
+    # training paths
+    k1_bf16 = {"decode": decode["K1"], "encode": encode["K1"],
+               "decode_z_only": z_only["K1"], "serve": serve["K1"],
+               "bundle": bundle["K1"], "decode_w8a8": decode_w8a8["K1"],
+               "cli": cli["K1"], "quality": quality["K1"],
+               "tiled": tiled["K1"]}
+    k2_bf16 = {"decode": decode["K2"], "encode": encode["K2"],
+               "decode_z_only": z_only["K2"], "serve": serve["K2"],
+               "bundle": bundle["K2"], "decode_w8a8": decode_w8a8["K2"],
+               "cli": cli["K2"], "quality": quality["K2"],
+               "tiled": tiled["K2"]}
+    k1_f32, k1_bwd, k2_f32, k3 = (
+        {"train": train[k], "train_loop": train_loop[k],
+         "stage1_yaml": stage1[k]} for k in ("K1", "K1-bwd", "K2", "K3"))
     kernels = [
-        summarize("flash_attention_fwd",
+        summarize("flash_attention_fwd_bf16",
                   "onedc_tpu_torch/csrc/flash_attention.cu",
-                  "onedc_tpu/nn/attention.py:43", k1_rows + k1t_rows,
-                  {"decode": decode["K1"], "encode": encode["K1"],
-                   "decode_z_only": z_only["K1"], "serve": serve["K1"],
-                   "bundle": bundle["K1"], "decode_w8a8": decode_w8a8["K1"],
-                   "cli": cli["K1"], "quality": quality["K1"],
-                   "tiled": tiled["K1"], "train": train["K1"],
-                   "train_loop": train_loop["K1"]},
+                  "onedc_tpu/nn/attention.py:43", k1_rows, k1_bf16,
                   "768x768"),
+        summarize("flash_attention_fwd_f32",
+                  "onedc_tpu_torch/csrc/flash_attention.cu",
+                  "onedc_tpu/nn/attention.py:43", k1t_rows, k1_f32,
+                  "train512"),
         summarize("flash_attention_bwd",
                   "onedc_tpu_torch/csrc/flash_attention_bwd.cu",
                   "jax/experimental/pallas/ops/tpu/flash_attention.py:941",
-                  k1b_rows, {"train": train["K1-bwd"],
-                             "train_loop": train_loop["K1-bwd"]}, "train512"),
-        summarize("gn_silu_conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
-                  "onedc_tpu/ops/pallas_conv.py:292", k2_rows + k2t_rows,
-                  {"decode": decode["K2"], "encode": encode["K2"],
-                   "decode_z_only": z_only["K2"], "serve": serve["K2"],
-                   "bundle": bundle["K2"], "decode_w8a8": decode_w8a8["K2"],
-                   "cli": cli["K2"], "quality": quality["K2"],
-                   "tiled": tiled["K2"], "train": train["K2"],
-                   "train_loop": train_loop["K2"]},
+                  k1b_rows, k1_bwd, "train512"),
+        summarize("gn_silu_conv3x3_bf16", "onedc_tpu_torch/csrc/conv3x3.cu",
+                  "onedc_tpu/ops/pallas_conv.py:292", k2_rows, k2_bf16,
                   "768x768"),
+        summarize("gn_silu_conv3x3_f32", "onedc_tpu_torch/csrc/conv3x3.cu",
+                  "onedc_tpu/ops/pallas_conv.py:292", k2t_rows, k2_f32,
+                  "train512"),
         summarize("conv3x3", "onedc_tpu_torch/csrc/conv3x3.cu",
-                  "onedc_tpu/ops/pallas_conv.py:89", k3_rows,
-                  {"train": train["K3"], "train_loop": train_loop["K3"]},
+                  "onedc_tpu/ops/pallas_conv.py:89", k3_rows, k3,
                   "train512"),
     ]
     for k in kernels:

@@ -5,9 +5,9 @@ JAX counterpart: ``onedc_tpu/entropy/bound.py:18-44``.
   where the incoming gradient is negative (it would push x up, towards the
   allowed side);
 - ``ste_round``: rounding with an identity (straight-through) gradient;
-- ``add_uniform_noise``: the training-time quantization proxy, drawing its
-  noise from an explicit ``torch.Generator`` (``jax.random`` keys have no
-  torch counterpart; the two give different numbers from the same seed).
+- ``uniform_noise``: the training-time quantization proxy's noise,
+  drawn from an explicit ``torch.Generator`` (``jax.random`` keys have no torch counterpart; the
+  two give different numbers from the same seed).
 """
 
 from __future__ import annotations
@@ -36,10 +36,11 @@ def ste_round(x: torch.Tensor) -> torch.Tensor:
     return x + (torch.round(x) - x).detach()
 
 
-def add_uniform_noise(x: torch.Tensor, generator: torch.Generator,
-                      noise_level: float = 0.5) -> torch.Tensor:
-    """x + U(-noise_level, noise_level), the noise drawn from ``generator``
-    on x's device and carrying no gradient."""
-    noise = torch.rand(x.shape, generator=generator, device=x.device,
-                       dtype=x.dtype)
-    return x + (noise * (2 * noise_level) - noise_level)
+def uniform_noise(shape, generator: torch.Generator, device, dtype,
+                  noise_level: float = 0.5) -> torch.Tensor:
+    """U(-noise_level, noise_level) of ``shape``, drawn from
+    ``generator``."""
+    noise = torch.rand(shape, generator=generator, device=device,
+                       dtype=dtype)
+    return noise * (2 * noise_level) - noise_level
+

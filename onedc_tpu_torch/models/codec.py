@@ -29,7 +29,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..entropy.bound import add_uniform_noise
 from ..entropy.fourpart import (
     combine_quarters,
     decompress_step_update,
@@ -248,6 +247,7 @@ class LatentCodec(nn.Module):
         self.z_only = z_only
         self.compute_dtype = compute_dtype
         self.ds = 64        # padding granularity
+        self.bottleneck_ch = n
         self.z_vq = FSQ(z_fsq_levels)
         self.enc = CodecEncoder(3, cond_ch, n, unet_ch_config,
                                 ctrl_ch=ctrl_ch)
@@ -272,8 +272,7 @@ class LatentCodec(nn.Module):
         return nhwc(self.y_spatial_prior_reduction(nchw(p)))
 
     def forward(self, x, cond, training: bool = False,
-                noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                noise: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """The RD forward (``onedc_tpu/models/codec.py:262-311``). x: image
         (B, 3, H, W), padded to a multiple of 64; cond: VAE latent (B,
@@ -281,7 +280,7 @@ class LatentCodec(nn.Module):
 
         In training the bits of y are estimated on y_res plus U(-0.5, 0.5)
         noise, given as ``noise`` (NHWC, the shape of y: (B, H/16, W/16,
-        C), the JAX layout) or drawn from ``generator``; with neither, or
+        C), the JAX layout; ``OneDC.bit_noise`` draws it); without it, or
         out of training, on the rounded y_q. Returns the JAX keys: "x_hat",
         "y_hat", "y_semantic", "z_semantic" (NCHW), "z_indices" (B, H/64,
         W/64), "bit", "bpp", "bpp_y", "bpp_hard_y" (scalars).
@@ -307,8 +306,6 @@ class LatentCodec(nn.Module):
 
         if training and noise is not None:
             y_for_bit = y_res + noise
-        elif training and generator is not None:
-            y_for_bit = add_uniform_noise(y_res, generator)
         else:
             y_for_bit = y_q
         bits_y = gaussian_bits(y_for_bit, scales_hat, training=training)

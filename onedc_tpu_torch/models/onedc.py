@@ -2,7 +2,9 @@
 stage-I training forward, and the bitstream runtime (encode and decode).
 
 JAX counterpart: ``onedc_tpu/models/onedc.py`` (:41-224 ``OneDC``, with the
-training forward :156-184 and the device halves :188-223; :226-367
+training forward :156-184, its Codeformer distillation (``use_codeformer``:
+``models/codeformer.py`` on y_semantic against the frozen ``nn/vqgan.py``
+tokenizer of the half-size image) and the device halves :188-223; :226-367
 ``OneDCRuntime.encode`` / ``decode``, :385-465 ``encode_batch`` /
 ``encode_many``, :467-563 ``decode_batch`` with the pipelined
 ``_decode_bucket_pipelined``, :313 ``set_params``). As in the JAX
@@ -39,18 +41,23 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..entropy.bound import uniform_noise
 from ..entropy.framing import get_padding_size
 from ..nn import quant as q8
 from ..nn.diffusion import get_x0_from_noise, make_alphas_cumprod
 from ..nn.unet_sd import SD15CodecUNet
 from ..nn.vae import AutoencoderKL, TinyVaeDecoder, hwio_conv_weights
+from ..nn.vqgan import MaskGitVQGAN
 from ..serving.encoder import pad_replicate
 from ..serving.pipeline import DecodePrograms, pipelined_decode
 from ..utils.device import resolve_device  # noqa: F401  (re-exported)
 from ..utils.numerics import pinned
+from ..utils.remat import rematerialized
 from .codec import LatentCodec, nchw, nhwc
+from .codeformer import Codeformer, codeformer_losses
 from .runtime import (
     WRITE_KEYS,
     CodecRuntime,
@@ -61,7 +68,8 @@ from .runtime import (
 
 
 class OneDC(nn.Module):
-    """Composite model. Submodules: vae / unet / codec."""
+    """Composite model. Submodules: vae / unet / codec, and with
+    ``use_codeformer`` codeformer / vqgan."""
 
     def __init__(self, internal_ch: int = 512, bottleneck_ch: int = 128,
                  unet_ch_config: Sequence[int] = (512, 768, 768),
@@ -76,13 +84,11 @@ class OneDC(nn.Module):
                  use_large_vae: bool = True, tiny_vae_ch: int = 64,
                  conditioning_timestep: int = 999,
                  num_train_timesteps: int = 1000,
-                 use_codeformer: bool = False):
+                 use_codeformer: bool = False,
+                 codeformer_codebook: int = 1024,
+                 codeformer_window: int = 16, vqgan_hidden: int = 128):
         super().__init__()
-        if use_codeformer:
-            raise NotImplementedError(
-                "use_codeformer: the Codeformer, MaskGitVQGAN and Swin "
-                "modules are not ported yet (ROADMAP.md, Queue 1, "
-                "codeformer distillation)")
+        self.use_codeformer = use_codeformer
         self.vae_scaling_factor = vae_scaling_factor
         self.conditioning_timestep = conditioning_timestep
         self.use_large_vae = use_large_vae
@@ -100,6 +106,16 @@ class OneDC(nn.Module):
             z_fsq_levels=z_fsq_levels, force_zero_thres=force_zero_thres,
             z_only=z_only)
         self.alphas_cumprod = make_alphas_cumprod(num_train_timesteps)
+        if use_codeformer:
+            # the semantic distillation of stage I (onedc.py:68-75, 99-107):
+            # the frozen VQGAN tokenizes the half-size image, the
+            # Codeformer predicts its codes from y_semantic
+            self.codeformer = Codeformer(in_ch=context_dim,
+                                         codebook_size=codeformer_codebook,
+                                         window_size=codeformer_window)
+            self.vqgan = MaskGitVQGAN(hidden=vqgan_hidden,
+                                      num_embeddings=codeformer_codebook,
+                                      with_decoder=False)
 
     def vae_encode_image(self, image):
         """image NCHW -> the posterior mean times the scaling factor,
@@ -117,23 +133,69 @@ class OneDC(nn.Module):
             return self.vae_tiny_dec(latents)
         return self.vae.decode(latents / self.vae_scaling_factor)
 
+    def bit_noise(self, image, generator: torch.Generator) -> torch.Tensor:
+        """The codec's U(-0.5, 0.5) training noise for ``image`` (B, H, W,
+        3): y's shape in the JAX layout, (B, H/16, W/16, C), drawn from
+        ``generator``."""
+        b, h, w, _ = image.shape
+        return uniform_noise((b, h // 16, w // 16, self.codec.bottleneck_ch),
+                             generator, image.device,
+                             self.codec.compute_dtype)
+
+    @torch.no_grad()
+    def vqgan_targets(self, x):
+        """The distillation targets of image x NCHW in [-1, 1]: the frozen
+        VQGAN's (quantized latents, indices) of the image resized to half
+        its size, bilinear with antialiasing as ``jax.image.resize`` does
+        it, and shifted to [0, 1]; no autograd record (JAX's
+        ``stop_gradient``)."""
+        h, w = x.shape[2:]
+        small = F.interpolate(x, size=(h // 2, w // 2), mode="bilinear",
+                              align_corners=False, antialias=True)
+        return self.vqgan.encode(small * 0.5 + 0.5)
+
     def forward(self, image, training: bool = False,
                 noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
-        """The stage-I training forward (``onedc.py:156-184``, codeformer
-        branch excluded): image (B, H, W, 3) NHWC in [-1, 1] -> (enc_dict,
-        pred_image (B, H, W, 3) NHWC). ``noise`` / ``generator`` feed the
-        codec's bit estimate (``LatentCodec.forward``). enc_dict holds the
-        codec's keys plus "x_latent" and "x_latent_recon" (x0, f32), NCHW.
+                remat: bool = False):
+        """The stage-I training forward (``onedc.py:156-184``): image (B,
+        H, W, 3) NHWC in [-1, 1] -> (enc_dict, pred_image (B, H, W, 3)
+        NHWC). ``noise`` (drawn by ``bit_noise``, outside any rematerialised
+        region) feeds the codec's bit estimate in training
+        (``LatentCodec.forward``). enc_dict holds the
+        codec's keys plus "x_latent" and "x_latent_recon" (x0, f32), NCHW,
+        and with the Codeformer "code_ce_loss" and "code_mse_loss".
+
+        ``remat``: the part that autograd records (codec, UNet, VAE
+        decoder, Codeformer) runs rematerialised (``utils/remat.py``); the
+        frozen VAE encoder and the VQGAN run before it, without autograd.
         """
         x = image.permute(0, 3, 1, 2)
         x_latent = self.vae_encode_image(x)
-        enc_dict = self.codec(x, x_latent, training=training, noise=noise,
-                              generator=generator)
+        targets = self.vqgan_targets(x) if self.use_codeformer else None
+        if remat and torch.is_grad_enabled():
+            enc_dict, pred = rematerialized(self._recorded_forward, x,
+                                            x_latent, targets, training,
+                                            noise)
+        else:
+            enc_dict, pred = self._recorded_forward(x, x_latent, targets,
+                                                    training, noise)
+        return enc_dict, nhwc(pred)
+
+    def _recorded_forward(self, x, x_latent, targets, training: bool, noise):
+        """Codec, one-step generation and the Codeformer's losses: (enc_dict,
+        pred NCHW)."""
+        enc_dict = self.codec(x, x_latent, training=training, noise=noise)
         pred, x0 = self.generate(enc_dict["x_hat"], enc_dict["y_semantic"])
         enc_dict["x_latent"] = x_latent
         enc_dict["x_latent_recon"] = x0
-        return enc_dict, nhwc(pred)
+        if targets is not None:
+            quant, idx = targets
+            logits, probs = self.codeformer(enc_dict["y_semantic"])
+            ce, mse = codeformer_losses(logits, probs, idx, quant,
+                                        self.vqgan.codebook().detach())
+            enc_dict["code_ce_loss"] = ce
+            enc_dict["code_mse_loss"] = mse
+        return enc_dict, pred
 
     def _one_step_x0(self, x_hat, y_semantic):
         """One UNet step at t=999 on the control tensor, x0 in f32."""

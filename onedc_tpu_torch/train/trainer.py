@@ -8,19 +8,22 @@ JAX counterpart: ``onedc_tpu/train/trainer.py`` (``save_config_snapshot``
 ``warmup_steps``, ``grad_clip``, ``frozen``, ``lmbda``, ``lmbda_schedule``,
 ``pix_weight``, ``lpips_weight``, ``pix_loss_type``, ``lpips_weights`` /
 ``allow_no_lpips``, ``batch_size``, ``resolutions``, ``batch_scales``,
-``seed``, ``optimizer``, ``fsdp``, ``grad_accum``, ``model``,
+``seed``, ``optimizer`` (``adamw`` or ``adafactor``), ``fsdp``,
+``grad_accum`` with ``grad_accum_mode`` (``scan`` or ``unrolled``:
+accepted only so that JAX's configs load; both are the same host loop
+here and the value changes nothing), ``gradient_checkpointing`` (default true, as JAX's),
+``codeformer_loss_weight`` / ``codeformer_mse_weight``, ``model``,
 ``train_data`` / ``eval_data`` (image folders), ``eval_max_images``,
 ``run_dir``, ``max_checkpoint``, ``log_interval``, ``save_interval``,
-``total_steps``, ``codec_ckpt`` / ``unet_ckpt_lora`` and ``override_lr`` /
-``override_step``. ``lpips_weights``: a converted LPIPS file
-(``nn/lpips.py``), the avg-pool VGG of the reference's loss, held frozen
-beside the model.
+``total_steps``, ``codec_ckpt`` / ``unet_ckpt_lora`` / ``codeformer_ckpt``
+and ``override_lr`` / ``override_step``. ``lpips_weights``: a converted
+LPIPS file (``nn/lpips.py``), the avg-pool VGG of the reference's loss,
+held frozen beside the model. ``frozen`` defaults to ``[vae, vqgan]``
+with the Codeformer, else ``[vae]``.
 
 Differences, by design or not yet ported:
-- one device, no FSDP or multi-host, AdamW only, ``grad_accum`` 1, no
-  rematerialisation (``gradient_checkpointing`` changes memory, not the
-  result), the local-folder loader only (``loader: grain`` raises), no
-  codeformer; each raises where the config asks for it;
+- one device, no FSDP or multi-host, the local-folder loader only
+  (``loader: grain`` raises); each raises where the config asks for it;
 - ``batches=`` (an iterable of numpy ``{"image": (B, H, W, 3)}`` in
   [-1, 1]) stands in for ``train_data``;
 - the noise of the codec's bit estimate comes from a ``torch.Generator``
@@ -74,8 +77,6 @@ _NOT_PORTED = {
                  "(ROADMAP.md, Queue 1, multi-GPU)",
     "fsdp": "fsdp: multi-GPU training is not ported yet (ROADMAP.md, "
             "Queue 1, multi-GPU)",
-    "codeformer_ckpt": "codeformer_ckpt: the Codeformer is not ported yet "
-                       "(ROADMAP.md, Queue 1, codeformer distillation)",
 }
 
 
@@ -105,13 +106,14 @@ def load_part_ckpts(model: OneDC, cfg: Mapping, logger) -> OneDC:
     ``model`` in place (the reference's ``load_part_ckpt``):
     ``codec_ckpt``, the IntraNoAR state dict, every codec tensor required;
     ``unet_ckpt_lora``, the SD1.5 UNet + LoRA state dict, partial allowed,
-    the LoRA merged at load. Each is a torch-layout safetensors file or an
-    in-memory ``{name: tensor}``; what they leave untouched keeps its
-    initial values."""
-    if cfg.get("codeformer_ckpt"):
-        raise NotImplementedError(_NOT_PORTED["codeformer_ckpt"])
+    the LoRA merged at load; ``codeformer_ckpt``, the Codeformer's state
+    dict, every Codeformer tensor required. Each is a torch-layout
+    safetensors file or an in-memory ``{name: tensor}``; what they leave
+    untouched keeps its initial values. No VQGAN path, as in the JAX
+    package (its tokenizer stays at its initial weights)."""
     part = dict(unet_path=cfg.get("unet_ckpt_lora"),
-                codec_path=cfg.get("codec_ckpt"))
+                codec_path=cfg.get("codec_ckpt"),
+                codeformer_path=cfg.get("codeformer_ckpt"))
     if not any(part.values()):
         return model
     from ..utils.port_torch import port_onedc_checkpoint
@@ -119,9 +121,11 @@ def load_part_ckpts(model: OneDC, cfg: Mapping, logger) -> OneDC:
     logger.info("warm-start from reference checkpoints: %s",
                 {k: (v if isinstance(v, str) else f"<{type(v).__name__}>")
                  for k, v in part.items() if v})
-    state = port_onedc_checkpoint(
-        reference=model.state_dict(),
-        require_complete=("codec",) if part["codec_path"] else (), **part)
+    required = tuple(sub for sub, key in (("codec", "codec_path"),
+                                          ("codeformer", "codeformer_path"))
+                     if part[key])
+    state = port_onedc_checkpoint(reference=model.state_dict(),
+                                  require_complete=required, **part)
     model.load_state_dict(state, strict=True)
     return model
 
@@ -169,7 +173,10 @@ class Trainer:
         hwio_conv_weights(model.vae)
         self.model = model
 
-        self.frozen = tuple(cfg.get("frozen", ("vae",)))
+        # the VQGAN is the frozen distillation target; the Codeformer trains
+        default_frozen = (("vae", "vqgan") if model.use_codeformer
+                          else ("vae",))
+        self.frozen = tuple(cfg.get("frozen", default_frozen))
         if "vae" not in self.frozen:
             raise ValueError("the VAE must stay frozen")
         self.state = self._fresh_state(float(cfg.get("lr", 5e-5)))
@@ -185,8 +192,20 @@ class Trainer:
             lmbda=lmbda, lmbda_schedule=dict(sched),
             pix_loss_type=cfg.get("pix_loss_type", "l1"),
             lpips_fn=nhwc_metric(self.lpips) if self.lpips else None)
-        self.step_fn = make_train_step(self.loss,
-                                       int(cfg.get("grad_accum", 1)))
+        self.grad_accum = int(cfg.get("grad_accum", 1))
+        # JAX's two accumulation programs are one host loop here: the mode
+        # is checked so that a JAX config loads, and changes nothing
+        mode = cfg.get("grad_accum_mode", "scan")
+        if mode not in ("scan", "unrolled"):
+            raise ValueError(f"grad_accum_mode {mode!r}: scan or unrolled")
+        self.codeformer_weights = (
+            float(cfg.get("codeformer_loss_weight", 1e-3)),
+            float(cfg.get("codeformer_mse_weight", 1e-2)))
+        self.step_fn = make_train_step(
+            self.loss, self.grad_accum,
+            remat=bool(cfg.get("gradient_checkpointing", True)),
+            codeformer_loss_weight=self.codeformer_weights[0],
+            codeformer_mse_weight=self.codeformer_weights[1])
 
         # data
         self.batch_size = int(cfg.get("batch_size", 8))
@@ -228,10 +247,12 @@ class Trainer:
 
     def _prepare_batch(self, batch, step: int) -> Dict[str, torch.Tensor]:
         """The step's resolution and batch size (``MultiResolutionCrop.
-        pick``), then one random crop per image from a generator seeded by
-        the step."""
+        pick``; the size rounded down to a multiple of ``grad_accum``, at
+        least one micro-batch of one image), then one random crop per image
+        from a generator seeded by the step."""
         res, scale = self.crop.pick(step)
         bs = max(1, int(round(self.batch_size * scale)))
+        bs = max(self.grad_accum, bs // self.grad_accum * self.grad_accum)
         rng = np.random.default_rng(step)
         imgs = np.stack([random_crop(im, res, rng)
                          for im in batch["image"][:bs]])
@@ -261,8 +282,10 @@ class Trainer:
     def eval_one_epoch(self, step: int, max_images=None) -> Dict[str, float]:
         """The training objective on the eval set: the full RD loss (pixel
         + LPIPS where configured + lambda * bpp, the lambda schedule read
-        at ``step``), ``bpp_hard_y``, ``mse`` and ``psnr``, averaged over
-        the images; the best checkpoint is chosen by its ``total_loss``.
+        at ``step``; with the Codeformer its weighted distillation term in
+        ``total_loss`` and the unweighted one as ``codeformer_loss``),
+        ``bpp_hard_y``, ``mse`` and ``psnr``, averaged over the images; the
+        best checkpoint is chosen by its ``total_loss``.
         Each image is cut to its top-left multiple of 64 in each side, as
         the JAX trainer does. The whole eval loader unless
         ``eval_max_images`` (or ``max_images``) caps it; the first image's
@@ -277,9 +300,15 @@ class Trainer:
             h, w = img.shape[1] // 64 * 64, img.shape[2] // 64 * 64
             img = img[:, :h, :w].contiguous().to(self.device)
             enc_dict, pred = self.model(img)
-            _, ld = self.loss(img, pred, enc_dict["bpp"], step=step,
-                              training=True)
+            total, ld = self.loss(img, pred, enc_dict["bpp"], step=step,
+                                  training=True)
             ld["bpp_hard_y"] = enc_dict["bpp_hard_y"]
+            if "code_ce_loss" in enc_dict:
+                weight, mse_weight = self.codeformer_weights
+                cf = (enc_dict["code_ce_loss"]
+                      + enc_dict["code_mse_loss"] * mse_weight)
+                ld["total_loss"] = total + cf * weight
+                ld["codeformer_loss"] = cf
             mse = float(torch.mean((pred - img) ** 2))
             avg.update({k: float(v) for k, v in ld.items()})
             avg.update({"mse": mse,
@@ -301,17 +330,17 @@ class Trainer:
                                         Dict[str, str]]:
         """What a checkpoint holds, as live tensors (restore copies into
         them): ``params/<name>`` for every parameter of the model (the
-        frozen VAE's too), ``adamw/mu/<name>`` and ``adamw/nu/<name>`` for
-        the trainable ones; and the step and the optimizer's count as
+        frozen VAE's too) and the optimizer's state of the trainable ones
+        (``adamw/mu/<name>`` and ``adamw/nu/<name>``, or Adafactor's
+        ``adafactor/v_row|v_col|v/<name>``); and the step and the
+        optimizer's count (``adamw_count`` or ``adafactor_count``) as
         metadata."""
         opt = self.state.optimizer
         tensors = {f"params/{n}": p.data
                    for n, p in self.model.named_parameters()}
-        for name, mu, nu in zip(self.trainable_names, opt.mu, opt.nu):
-            tensors[f"adamw/mu/{name}"] = mu
-            tensors[f"adamw/nu/{name}"] = nu
+        tensors.update(opt.named_state(self.trainable_names))
         return tensors, {"train_step": str(self.state.step),
-                         "adamw_count": str(opt.count)}
+                         f"{opt.name}_count": str(opt.count)}
 
     def save_checkpoint(self, step: int, metric: Optional[float] = None):
         """``checkpoint_state`` as the checkpoint of ``step``; its bytes and
@@ -363,8 +392,9 @@ class Trainer:
 
     def resume(self, step: Optional[int] = None) -> int:
         """The checkpoint of ``step`` (None: the latest) into the live
-        state, bit for bit; then ``override_lr`` (a fresh AdamW at that lr,
-        moments and count reset, the step kept) and ``override_step``.
+        state, bit for bit; then ``override_lr`` (a fresh optimizer at that
+        lr, its state and count reset, the step kept) and
+        ``override_step``.
         Returns the checkpoint's step; the restore's seconds go to the
         writer (``checkpoint/restore_s``)."""
         tensors, _ = self.checkpoint_state()
@@ -375,7 +405,8 @@ class Trainer:
         self.writer.log_dict({"restore_s": time.perf_counter() - t0},
                              restored, prefix="checkpoint")
         self.state.step = int(meta["train_step"])
-        self.state.optimizer.count = int(meta["adamw_count"])
+        opt = self.state.optimizer
+        opt.count = int(meta[f"{opt.name}_count"])
         if self.cfg.get("override_lr") is not None:
             new_lr = float(self.cfg["override_lr"])
             cur_step = self.state.step

@@ -10,8 +10,10 @@ mechanically onto a state-dict key:
 Leaves convert as: conv kernel HWIO -> OIHW (a depthwise (3, 3, 1, C)
 kernel becomes (C, 1, 3, 3) by the same transpose); Dense kernel
 (in, out) -> (out, in); GroupNorm / LayerNorm ``scale`` -> ``weight``;
-``bias`` as is; any other leaf raises. ``OneDC.load_state_dict(...,
-strict=True)`` then raises on any key left over on either side: every leaf
+``bias``, the Swin ``pos_embedding`` (ws², ws²) and the VQGAN's
+``quantize/embedding`` (K, D) as they are; any other leaf raises.
+``OneDC.load_state_dict(..., strict=True)`` then raises on any key left
+over on either side: every leaf
 of the tree, the encode side (``vae/encoder``, ``codec/enc``,
 ``codec/hyper_enc``) included, must have its parameter in the port.
 
@@ -43,6 +45,10 @@ def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield path, v
 
 
+# leaves whose name and layout carry over unchanged
+_AS_IS = ("bias", "pos_embedding", "embedding")
+
+
 def convert_leaf(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
     """One flax leaf -> (state-dict key, array in torch layout)."""
     *mods, leaf = path.split("/")
@@ -56,7 +62,7 @@ def convert_leaf(path: str, value: np.ndarray) -> Tuple[str, np.ndarray]:
         leaf = "weight"
     elif leaf == "scale":
         leaf = "weight"
-    elif leaf != "bias":
+    elif leaf not in _AS_IS:
         raise ValueError(f"{path}: unknown leaf kind {leaf!r}")
     return ".".join(mods + [leaf]), np.ascontiguousarray(value)
 

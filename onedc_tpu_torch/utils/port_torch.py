@@ -2,13 +2,18 @@
 
 JAX counterpart: ``onedc_tpu/utils/port_torch.py`` (``merge_lora`` :51,
 the rule tables :109-284, ``port_state_dict`` :299, ``_assemble`` :432,
-``port_onedc_checkpoint`` :469), in what the lambda and z-only models
-need:
+``port_onedc_checkpoint`` :469), in what the lambda and z-only models and
+the stage-I Codeformer need:
 
 - ``model.safetensors``   (SD1.5 UNet + peft LoRA + conv_in +
   vae_reduction)              -> ``unet.*``, LoRA merged
 - ``model_1.safetensors`` (IntraNoAR codec)   -> ``codec.*``
 - a diffusers SD2.1 VAE state dict            -> ``vae.*``
+- a Codeformer state dict                     -> ``codeformer.*``
+  (``port_codeformer_state``, JAX :236-280, :367-373)
+- a MaskGIT-VQGAN torch state dict            -> ``vqgan.*``
+  (``port_vqgan_state``, JAX :361-364; wired no further than the JAX
+  package wires it: ``port_onedc_checkpoint`` takes no VQGAN path)
 
 The rule tables are the JAX package's, unchanged: they rename a reference
 module path onto the module path of the flax tree, whose module names the
@@ -254,6 +259,44 @@ _VAE_RULES: List[Rule] = [
      r"\1/\2_\3/upsamplers_0."),
 ]
 
+# Swin blocks (ref blocks/swin.py:134-196): attention_block -> attn,
+# FeedForward net indices -> mlp_0/mlp_2; the shifted blocks' additive
+# masks are static on the port's side (skipped at the call sites).
+_SWIN_RULES: List[Rule] = [
+    (r"\.attention_block\.", r"/attn/"),
+    (r"\.mlp_block\.net\.0\.", r"/mlp_0."),
+    (r"\.mlp_block\.net\.2\.", r"/mlp_2."),
+]
+
+# Codeformer (ref codec_module.py:472-503): up_sample Sequential ->
+# up_block0/up_expand/up_block1, blocks.N -> swinN, mlp_head Sequential
+# -> head_0/head_norm0/head_3/head_norm1/head_out.
+_CODEFORMER_RULES: List[Rule] = [
+    (r"^up_sample\.0", r"up_block0"),
+    (r"^up_sample\.1\.", r"up_expand."),
+    (r"^up_sample\.3", r"up_block1"),
+    (r"^blocks\.(\d)\.", r"swin\1/"),
+    (r"^mlp_head\.0\.", r"head_0."),
+    (r"^mlp_head\.1\.", r"head_norm0."),
+    (r"^mlp_head\.3\.", r"head_3."),
+    (r"^mlp_head\.4\.", r"head_norm1."),
+    (r"^mlp_head\.6\.", r"head_out."),
+] + _SWIN_RULES + _DCVC_RULES
+
+_SWIN_SKIP = (r"upper_lower_mask", r"left_right_mask", r"relative_indices")
+
+_VQGAN_RULES: List[Rule] = [
+    (r"^quantize\.embedding\.weight$", r"quantize/embedding"),
+    (r"^(encoder|decoder)\.conv_in\.", r"\1/conv_in."),
+    (r"^(encoder|decoder)\.norm_out\.", r"\1/norm_out."),
+    (r"^(encoder|decoder)\.conv_out\.", r"\1/conv_out."),
+    (r"^encoder\.down\.(\d)\.block\.(\d)\.", r"encoder/down_\1_block_\2."),
+    (r"^encoder\.mid\.(\d)\.", r"encoder/mid_\1."),
+    (r"^decoder\.mid\.(\d)\.", r"decoder/mid_\1."),
+    (r"^decoder\.up\.(\d)\.block\.(\d)\.", r"decoder/up_\1_block_\2."),
+    (r"^decoder\.up\.(\d)\.upsample_conv\.", r"decoder/up_\1_conv."),
+]
+
 # generic: diffusers Attention's to_out is a ModuleList(Linear, Dropout).
 # Separator class [./]: an enclosing rule may already have rewritten the
 # preceding "." to "/".
@@ -263,24 +306,33 @@ _GENERIC_RULES: List[Rule] = [
 
 
 def port_state_dict(state: Mapping[str, object], rules: List[Rule],
-                    skip: Tuple[str, ...] = ()) -> Dict[str, np.ndarray]:
+                    skip: Tuple[str, ...] = (),
+                    raw_keys: Tuple[str, ...] = ()) -> Dict[str, np.ndarray]:
     """Rename every tensor of a reference state dict onto a port key
     (relative to the submodule the rules address) and read it as f32, in
-    the torch layout. Raises KeyError for a name the rules leave with a
-    bare index (an unmapped Sequential entry) or whose leaf is neither
-    ``weight`` nor ``bias``."""
+    the torch layout. ``raw_keys``: patterns of names whose renamed path
+    is the key itself, with no ``weight`` / ``bias`` leaf split off (an
+    ``nn.Embedding`` weight, a raw parameter such as ``pos_embedding``),
+    as the JAX porter's ``raw_keys``. Raises KeyError for a name the rules
+    leave with a bare index (an unmapped Sequential entry) or whose leaf is
+    neither ``weight`` nor ``bias`` nor raw."""
     flat: Dict[str, np.ndarray] = {}
     for key, arr in state.items():
         if any(re.search(s, key) for s in skip):
             continue
-        stem, _, leaf = key.rpartition(".")
-        if leaf not in ("weight", "bias"):
-            raise KeyError(f"unmapped torch name: {key} (leaf {leaf!r})")
+        if any(re.search(p, key) for p in raw_keys):
+            stem, leaf = (key[:-len(".weight")] if key.endswith(".weight")
+                          else key), None
+        else:
+            stem, _, leaf = key.rpartition(".")
+            if leaf not in ("weight", "bias"):
+                raise KeyError(f"unmapped torch name: {key} (leaf "
+                               f"{leaf!r})")
         renamed = _apply_rules(stem + ".", rules + _GENERIC_RULES)
         path = renamed.rstrip("./").replace("/", ".")
         if re.search(r"(^|\.)\d+(\.|$)", path):
             raise KeyError(f"unmapped torch name: {key} -> {path}")
-        flat[f"{path}.{leaf}"] = _f32(arr)
+        flat[path if leaf is None else f"{path}.{leaf}"] = _f32(arr)
     return flat
 
 
@@ -303,6 +355,22 @@ def port_sd_unet_state(state: Mapping[str, object], lora_rank: int = 64,
 def port_vae_state(state: Mapping[str, object]) -> Dict[str, np.ndarray]:
     """A diffusers AutoencoderKL state dict -> ``vae.*`` keys."""
     return port_state_dict(state, _VAE_RULES)
+
+
+def port_vqgan_state(state: Mapping[str, object]) -> Dict[str, np.ndarray]:
+    """A MaskGIT-VQGAN torch state dict -> ``vqgan.*`` keys; the
+    ``quantize.embedding`` (K, D) stays as it is."""
+    return port_state_dict(state, _VQGAN_RULES,
+                           raw_keys=(r"^quantize\.embedding\.weight$",))
+
+
+def port_codeformer_state(state: Mapping[str, object]
+                          ) -> Dict[str, np.ndarray]:
+    """A Codeformer state dict (the reference's ``codec_module.py:472-503``
+    naming) -> ``codeformer.*`` keys: the Swin ``pos_embedding`` stays (ws²,
+    ws²); the shifted windows' additive masks, static here, are skipped."""
+    return port_state_dict(state, _CODEFORMER_RULES, skip=_SWIN_SKIP,
+                           raw_keys=(r"\.pos_embedding$",))
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +414,7 @@ def _assemble(reference: Mapping[str, torch.Tensor],
 def port_onedc_checkpoint(unet_path: Optional[StateSource] = None,
                           codec_path: Optional[StateSource] = None,
                           vae_path: Optional[StateSource] = None,
+                          codeformer_path: Optional[StateSource] = None,
                           reference: Optional[Mapping[str, torch.Tensor]]
                           = None,
                           require_complete: Tuple[str, ...] = ()
@@ -356,8 +425,8 @@ def port_onedc_checkpoint(unet_path: Optional[StateSource] = None,
     dtypes; entries no checkpoint fills are returned as they are). Each
     ``*_path`` is a safetensors file or an in-memory ``{name: tensor or
     array}`` in the reference's naming and layout. ``require_complete``:
-    submodule names ("unet", "codec", "vae") every key of which a
-    checkpoint must fill.
+    submodule names ("unet", "codec", "vae", "codeformer") every key of
+    which a checkpoint must fill.
     """
     if reference is None:
         raise ValueError("port_onedc_checkpoint needs the reference state "
@@ -369,4 +438,7 @@ def port_onedc_checkpoint(unet_path: Optional[StateSource] = None,
         fills["codec"] = port_codec_state(_load_state(codec_path))
     if vae_path is not None:
         fills["vae"] = port_vae_state(_load_state(vae_path))
+    if codeformer_path is not None:
+        fills["codeformer"] = port_codeformer_state(
+            _load_state(codeformer_path))
     return _assemble(reference, fills, require_complete)

@@ -5,7 +5,8 @@ limits on K1's row log-sum-exp (moved out of
 minutes, so that these run on another worker), the launches of the
 pipelined serving schedule, the w8a8 phase's quantized ops, the quality
 phase's launches and plain reference, the training phase's LPIPS
-config, and the tiled and training-loop phases' plans and launches."""
+config, the tiled and training-loop phases' plans and launches, and the
+stage-I yaml phase's shapes, launches with remat, and config."""
 
 from pathlib import Path
 
@@ -376,3 +377,76 @@ def test_chip_smoke_train_loop_tables(monkeypatch):
     assert pred.shape == (1, 512, 768, 3)
     assert (sum(k1.values()), 0, sum(k2.values()), 0) == \
         cs.EVAL_PER_IMAGE[(512, 768)]
+
+
+@pytest.mark.parametrize("res,batch", [(512, 8), (1024, 2)])
+def test_chip_smoke_stage1_tables(monkeypatch, res, batch):
+    """The stage-I yaml phase's tables: the full-width model with the
+    Codeformer, in a training forward on meta tensors at each step's
+    resolution and batch, gives K1 and K2 the "stage" buckets' shapes and
+    counts, and its VAE decoder alone the K3 bucket's (each decoder conv's
+    input gradient); with remat a step launches K1 and the decoder's K2
+    again (``stage1_per_step``, held on the CPU in
+    ``tests/test_torch_train_levers.py``)."""
+    from collections import Counter
+
+    import chip_smoke as cs
+    from onedc_tpu_torch.models.onedc import OneDC
+
+    bucket = f"stage{res}"
+    k1, k2 = _recorded_launches(monkeypatch)
+    with torch.device("meta"):
+        model = OneDC(use_codeformer=True)
+    image = torch.zeros((batch, res, res, 3), device="meta")
+    with torch.no_grad():
+        enc, pred = model(image, training=True,
+                          noise=torch.zeros((batch, res // 16, res // 16,
+                                             128), device="meta"))
+    assert pred.shape == image.shape
+    assert enc["code_ce_loss"].shape == ()
+    assert dict(k1) == dict(Counter(dict(cs.K1_TRAIN_SHAPES[bucket])))
+    assert dict(k2) == dict(Counter(dict(cs.K2_TRAIN_SHAPES[bucket])))
+    k2.clear()
+    with torch.no_grad():
+        model.vae.decode(torch.zeros((batch, 4, res // 8, res // 8),
+                                     device="meta"))
+    k3 = Counter()
+    for (b, h, w, cin, cout), n in k2.items():
+        k3[(b, h, w, cout, cin)] += n
+    assert dict(k3) == dict(Counter(dict(cs.K3_TRAIN_SHAPES[bucket])))
+    per_forward = (sum(n for _, n in cs.K1_TRAIN_SHAPES[bucket]),
+                   sum(n for _, n in cs.K1_TRAIN_SHAPES[bucket]),
+                   sum(n for _, n in cs.K2_TRAIN_SHAPES[bucket]),
+                   sum(k3.values()))
+    assert per_forward == cs.STAGE1_PER_FORWARD[res]
+    k1_fwd, k1_bwd, k2_fwd, k3_n = per_forward
+    assert cs.stage1_per_step(res) == (2 * k1_fwd, k1_bwd, k2_fwd + k3_n,
+                                       k3_n)
+
+
+def test_chip_smoke_stage1_phase_runs_the_yaml(tmp_path):
+    """The stage-I yaml phase's config: configs/train_stage1.yaml with
+    STAGE1_OVERRIDES alone keeps the yaml's recipe (Adafactor, the
+    Codeformer, frozen [vae, vqgan], batch 8, the Codeformer weights, remat
+    by default); its steps' resolutions and launches; the earlier training
+    phases run without remat, as they did before it was ported."""
+    import chip_smoke as cs
+    from onedc_tpu_torch.config import load_config
+    from onedc_tpu_torch.data.crops import MultiResolutionCrop
+
+    cfg = load_config(Path(cs.__file__).parent / "configs" /
+                      "train_stage1.yaml", cs.STAGE1_OVERRIDES)
+    assert (cfg["optimizer"], cfg["frozen"], cfg["batch_size"],
+            cfg["model"]["use_codeformer"]) == (
+        "adafactor", ["vae", "vqgan"], 8, True)
+    assert "gradient_checkpointing" not in cfg
+    assert (cfg["codeformer_loss_weight"], cfg["codeformer_mse_weight"]) \
+        == (1e-3, 1e-2)
+    assert sorted(cs.STAGE1_OVERRIDES) == ["batch_scales", "fsdp",
+                                           "resolutions"]
+    crop = MultiResolutionCrop(cfg["resolutions"], cfg["batch_scales"])
+    picks = [crop.pick(s) for s in range(cs.STAGE1_STEPS)]
+    assert [r for r, _ in picks].count(512) == 3
+    assert {(r, round(8 * s)) for r, s in picks} == {(512, 8), (1024, 2)}
+    assert cs.stage1_launches() == (174, 87, 684, 252)
+    assert cs.TRAIN_OVERRIDES["gradient_checkpointing"] is False

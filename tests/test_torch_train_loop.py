@@ -208,7 +208,8 @@ def test_load_part_ckpts_matches_jax():
     """``codec_ckpt`` and ``unet_ckpt_lora`` (in-memory twins) over the
     tiny weights: the port's model equals JAX's ported tree bit for bit,
     every tensor; an incomplete codec raises in both; no keys, no
-    change; ``codeformer_ckpt`` raises in the port."""
+    change; ``codeformer_ckpt`` on a model without a Codeformer raises in
+    both (the warm start itself: ``tests/test_torch_train_levers.py``)."""
     unet, codec = _tiny_twins()
     cfg = dict(codec_ckpt=codec, unet_ckpt_lora=unet)
     want = state_dict_from_jax(jtrainer.load_part_ckpts(
@@ -230,8 +231,13 @@ def test_load_part_ckpts_matches_jax():
         ptrainer.load_part_ckpts(port_model(), dict(codec_ckpt=dropped), log)
     model = port_model()
     assert ptrainer.load_part_ckpts(model, {}, log) is model
-    with pytest.raises(NotImplementedError, match="codeformer"):
-        ptrainer.load_part_ckpts(model, dict(codeformer_ckpt="x"), log)
+    # a Codeformer state dict for a model without one: no home in either
+    cf = {"mlp_head.6.bias": np.zeros(4, np.float32)}
+    with pytest.raises(KeyError, match="no home"):
+        jtrainer.load_part_ckpts(tiny_jax_model()[1],
+                                 Config.wrap(dict(codeformer_ckpt=cf)), log)
+    with pytest.raises(KeyError, match="no home"):
+        ptrainer.load_part_ckpts(model, dict(codeformer_ckpt=cf), log)
 
 
 class _Writer:
@@ -394,9 +400,7 @@ def test_resume_overrides(tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("fsdp", True), ("multihost", True), ("loader", "grain"),
-    ("optimizer", "adafactor"), ("grad_accum", 2),
-    ("model", dict(TINY, use_codeformer=True))])
+    ("fsdp", True), ("multihost", True), ("loader", "grain")])
 def test_unported_options_raise(tmp_path, key, value):
     """Each option the port does not run yet raises, naming where it
     stands in ROADMAP.md."""

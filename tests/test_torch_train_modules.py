@@ -132,12 +132,14 @@ def test_lower_bound_and_ste_round_match_jax():
 
 
 def test_add_uniform_noise_draws_from_its_generator():
-    x = torch.zeros(4, 1000, requires_grad=True)
-    a = pbound.add_uniform_noise(x, torch.Generator().manual_seed(3))
-    b = pbound.add_uniform_noise(x, torch.Generator().manual_seed(3))
-    assert torch.equal(a, b)
+    """``uniform_noise``, the codec's training noise that the step adds to
+    y_res: U(-0.5, 0.5), the same draw from the same seed, no gradient."""
+    a, b = (pbound.uniform_noise((4, 1000), torch.Generator().manual_seed(3),
+                                 "cpu", torch.float32) for _ in range(2))
+    assert torch.equal(a, b) and not a.requires_grad
     assert a.min() >= -0.5 and a.max() < 0.5 and a.std() > 0.25
-    a.sum().backward()
+    x = torch.zeros(4, 1000, requires_grad=True)
+    (x + a).sum().backward()
     assert torch.equal(x.grad, torch.ones_like(x))  # the noise is constant
 
 

@@ -75,33 +75,82 @@ def fill_params(shapes, rng: np.random.Generator):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
-def tiny_jax_model(seed: int = SEED):
+# the tiny model's Codeformer distillation (stage I): a 4-token window,
+# which divides the 4x4 code grid of a 128x128 image, and a 32-wide VQGAN
+CODEFORMER = dict(use_codeformer=True, codeformer_window=4, vqgan_hidden=32)
+
+
+def tiny_jax_model(seed: int = SEED, codeformer: bool = False):
     """(flax OneDC, params as nested dicts of numpy arrays), built once per
     seed and process (``tiny_jax_model()`` and ``tiny_jax_model(SEED)`` are
-    one entry: tracing the init takes 10-20 s on a CPU)."""
-    return _tiny_jax_model(seed)
+    one entry: tracing the init takes 10-20 s on a CPU); ``codeformer``:
+    with ``CODEFORMER``, traced at 128x128."""
+    return _tiny_jax_model(seed, codeformer)
 
 
 @functools.lru_cache(maxsize=None)
-def _tiny_jax_model(seed: int):
-    model = JaxOneDC(**TINY)
+def _tiny_jax_model(seed: int, codeformer: bool):
+    model = JaxOneDC(**TINY, **(CODEFORMER if codeformer else {}))
+    size = 128 if codeformer else 64
     shapes = jax.eval_shape(
         lambda x: model.init({"params": jax.random.PRNGKey(0)}, x),
-        jnp.zeros((1, 64, 64, 3), jnp.float32))
+        jnp.zeros((1, size, size, 3), jnp.float32))
     return model, fill_params(shapes, np.random.default_rng(seed))
 
 
-def port_model(seed: int = SEED, **overrides):
+def port_model(seed: int = SEED, codeformer: bool = False, **overrides):
     """A fresh port OneDC holding the same weights as ``tiny_jax_model``;
     ``overrides`` change keys of the tiny config that add no weights
     (``z_only``, ``force_zero_thres``)."""
     from onedc_tpu_torch.models.onedc import OneDC
     from onedc_tpu_torch.utils.convert import state_dict_from_jax
 
-    model = OneDC(**{**TINY, **overrides})
-    model.load_state_dict(state_dict_from_jax(tiny_jax_model(seed)[1]),
-                          strict=True)
+    model = OneDC(**{**TINY, **(CODEFORMER if codeformer else {}),
+                     **overrides})
+    model.load_state_dict(state_dict_from_jax(
+        tiny_jax_model(seed, codeformer)[1]), strict=True)
     return model.eval().requires_grad_(False)
+
+
+# the reference's module paths of the Codeformer and the VQGAN
+# (``codec_module.py:472-511``, ``maskgit_vqgan.py``), from the port's: the
+# inverse of the porters' rule tables (``utils/port_torch.py``)
+_REFERENCE_NAMES = {
+    "codeformer": [
+        (r"^up_block0\.", "up_sample.0."), (r"^up_expand\.", "up_sample.1."),
+        (r"^up_block1\.", "up_sample.3."), (r"^swin(\d)\.", r"blocks.\1."),
+        (r"^head_0\.", "mlp_head.0."), (r"^head_norm0\.", "mlp_head.1."),
+        (r"^head_3\.", "mlp_head.3."), (r"^head_norm1\.", "mlp_head.4."),
+        (r"^head_out\.", "mlp_head.6."),
+        (r"\.attn\.", ".attention_block."),
+        (r"\.mlp_0\.", ".mlp_block.net.0."),
+        (r"\.mlp_2\.", ".mlp_block.net.2."),
+        (r"\.dc\.conv1_0\.", ".block.0.conv1.0."),
+        (r"\.dc\.depth_conv\.", ".block.0.depth_conv."),
+        (r"\.dc\.conv2\.", ".block.0.conv2."),
+        (r"\.dc\.adaptor\.", ".block.0.adaptor."),
+        (r"\.ffn\.conv\.", ".block.1.conv."),
+        (r"\.ffn\.conv_out\.", ".block.1.conv_out.")],
+    "vqgan": [
+        (r"^encoder\.down_(\d)_block_(\d)\.", r"encoder.down.\1.block.\2."),
+        (r"^(encoder|decoder)\.mid_(\d)\.", r"\1.mid.\2."),
+        (r"^decoder\.up_(\d)_block_(\d)\.", r"decoder.up.\1.block.\2."),
+        (r"^decoder\.up_(\d)_conv\.", r"decoder.up.\1.upsample_conv."),
+        (r"^quantize\.embedding$", "quantize.embedding.weight")],
+}
+
+
+def reference_state(module, kind: str):
+    """A port module's state dict (numpy f32) under the reference's names:
+    ``kind`` "codeformer" or "vqgan"."""
+    import re
+
+    out = {}
+    for key, value in module.state_dict().items():
+        for pattern, repl in _REFERENCE_NAMES[kind]:
+            key = re.sub(pattern, repl, key)
+        out[key] = value.detach().float().numpy().copy()
+    return out
 
 
 def subtree(params, *path):
