@@ -124,11 +124,27 @@
    VAE and VQGAN bit-identical; a 512x512 batch-8 step without remat for
    its peak; remat, grad_accum and Adafactor held on the card
    (``stage1_checks``).
-16. Prints ``{"kernels": [...]}``: K1 bf16 and f32, K1-bwd, K2 bf16 and
+16. Stage-II phase (``stage2_path``): ``train.trainer_stage2.main`` on
+   configs/train_stage2.yaml as shipped (the OneDC generator, the real and
+   fake SD1.5 UNets, the GAN head and the CLIP text encoder at full width;
+   AdamW on both turns, remat, 512x512 batch 4) with only the data and run
+   directories, a seeded random LPIPS file and the step count set:
+   STAGE2_STEPS steps (the generator turn at step 0, the latents alone at
+   1 and 2), eval and a checkpoint at STAGE2_SAVE, ``--resume`` in a fresh
+   trainer equal to the uninterrupted run bit for bit; per step its s/step,
+   peak memory, launches (``stage2_per_step``), finite losses, which
+   tensors moved (the generator's moments only on its turn, the critic's
+   every step), a finite non-zero gradient on the fake UNet's first
+   ``attn1.to_q`` (only K1-bwd carries it); the VAE, codec and real UNet
+   bit-identical; the real UNet's CFG as one batch against its two
+   forwards (STAGE2_CFG_TOL); the text encoder's ms; the checkpoint's
+   bytes, save and restore seconds. The kernel phase holds K1, K1-bwd,
+   K2 and K3 at its shapes (the "stage2" buckets), untimed.
+17. Prints ``{"kernels": [...]}``: K1 bf16 and f32, K1-bwd, K2 bf16 and
    f32, K3, with their launches by path (bf16: decode, encode,
    decode_z_only, serve, bundle, decode_w8a8, cli, quality, tiled; f32:
-   train, train_loop, stage1_yaml), the card line and, last, the device
-   line.
+   train, train_loop, stage1_yaml, stage2), the card line and, last, the
+   device line.
 
 The whole run holds the numerics the package pins in its entry points
 (``onedc_tpu_torch/utils/numerics.py``).
@@ -275,7 +291,8 @@ K1_TRAIN_SHAPES = {"train512": [((2, 4096, 8, 40), 5)],
                                 ((1, 2304, 64, 8), 2)],
                    "stage512": [((8, 4096, 8, 40), 5)],
                    "stage1024": [((2, 16384, 8, 40), 5), ((2, 4096, 8, 80), 5),
-                                 ((2, 4096, 64, 8), 2)]}
+                                 ((2, 4096, 64, 8), 2)],
+                   "stage2": [((4, 4096, 8, 40), 5)]}
 K2_TRAIN_SHAPES = {"train512": [((2, 64, 64, 512, 512), 18),
                                 ((2, 128, 128, 512, 512), 9),
                                 ((2, 128, 128, 256, 512), 1),
@@ -332,6 +349,12 @@ K3_TRAIN_SHAPES = {"train512": [((2, 64, 64, 512, 512), 10),
                                  ((2, 512, 512, 256, 256), 5),
                                  ((2, 1024, 1024, 128, 256), 1),
                                  ((2, 1024, 1024, 128, 128), 5)]}
+# the stage-II phase's 512x512 batch-4 steps: the VAE's shapes of
+# "stage512" at batch 4 (its K1 at batch 8, the real UNet's CFG rows, is
+# "stage512"'s own shape)
+for _table in (K2_TRAIN_SHAPES, K3_TRAIN_SHAPES):
+    _table["stage2"] = [((4,) + shape[1:], n)
+                        for shape, n in _table["stage512"]]
 # K2's autograd backward (recompute + K3 + torch dw), one shape per level
 K2_BWD_SHAPES = [(2, 64, 64, 512, 512), (2, 128, 128, 512, 512),
                  (2, 256, 256, 256, 256), (2, 512, 512, 128, 128)]
@@ -385,6 +408,29 @@ STAGE1_ACCUM_METRIC_TOL = 1e-2
 STAGE1_ADAFACTOR_TOL = 1e-5
 FIRST_ATTN1 = ("unet.down_blocks_0.attentions_0.transformer_blocks_0.attn1."
                "to_q.weight")
+# the stage-II phase: configs/train_stage2.yaml as shipped (512x512 PNGs at
+# its batch 4, AdamW, remat, the generator turn every 10th step) with only
+# the data, run directory, LPIPS file and step count set; steps 0-2 (the
+# generator turn at 0, latents alone at 1 and 2), eval and a checkpoint at
+# STAGE2_SAVE, then ``--resume`` to STAGE2_STEPS. The critics' attn1 at the
+# /8 grid (4096 tokens at 512x512) runs K1, five per UNet forward and two
+# on the GAN logit's down path (STAGE2_UNET_K1, STAGE2_DOWN_K1); the VAE
+# encoder's K2 and the decoder's K2 / K3 as in the "stage2" buckets.
+STAGE2_STEPS = 3
+STAGE2_SAVE = 2
+STAGE2_TRAIN_IMAGES = 8
+STAGE2_EVAL_IMAGES = 2
+STAGE2_SIZE = 512
+STAGE2_UNET_K1 = 5
+STAGE2_DOWN_K1 = 2
+STAGE2_ENC_K2 = 20
+STAGE2_DEC_K2 = 28
+# the real UNet's CFG as one batch of 2B rows against its two B-row
+# forwards, relative L2 of eps (cuDNN may round a batch's rows otherwise;
+# the BATCH_* limits above are a bf16 decode's)
+STAGE2_CFG_TOL = 1e-4
+FAKE_ATTN1 = ("fake_unet.down_blocks_0.attentions_0.transformer_blocks_0."
+              "attn1.to_q.weight")
 # the cli phase's Kodak-sized serving set: 24 images, 18 landscape (512x768)
 # and 6 portrait (768x512) as in Kodak, the portrait ones at Kodak's places
 SERVING_SIZES = [(768, 512) if i in (4, 9, 10, 17, 18, 19) else (512, 768)
@@ -436,7 +482,7 @@ TRAIN_LOOP_TRAIN = 4
 TRAIN_LOOP_EVAL = 2
 TRAIN_LOOP_STEPS = 3
 TRAIN_LOOP_SAVE = 2
-EVAL_PER_IMAGE = {(512, 768): (5, 0, 48, 0)}
+EVAL_PER_IMAGE = {(512, 768): (5, 0, 48, 0), (512, 512): (5, 0, 48, 0)}
 # the w8a8 phase: ops per decode that run quantized at the default gate 512,
 # by family (``nn/quant.py:family``; the full-width model's structure, held
 # by tests/test_torch_chip_smoke_tables.py against a recording pass on meta
@@ -3516,6 +3562,299 @@ def stage1_yaml_path(seed: int):
     return {"K1": got[0], "K1-bwd": got[1], "K2": got[2], "K3": got[3]}
 
 
+def stage2_per_step(gen_turn: bool):
+    """(K1, K1-bwd, K2, K3) launches of one stage-II yaml step (remat on,
+    as the yaml leaves it). The generator turn: the OneDC forward's UNet
+    (STAGE2_UNET_K1, again in the recompute), the DM loss's fake and real
+    UNets (no autograd; the real UNet's CFG is one launch of 2B rows), the
+    GAN logit's down path of the fake UNet, whose K1-bwd carries the
+    gradient to the latents; the VAE encoder's K2, the decoder's K2 (again
+    in the recompute) and K3. Other steps: the latents alone (the VAE
+    encoder and the UNet, no decode). Every step's guidance turn: the
+    critic's UNet forward and two GAN logits, all again in the recompute,
+    and their backward."""
+    unet, down = STAGE2_UNET_K1, STAGE2_DOWN_K1
+    guid = unet + 2 * down
+    if gen_turn:
+        return (4 * unet + down + 2 * guid, unet + down + guid,
+                STAGE2_ENC_K2 + 2 * STAGE2_DEC_K2, STAGE2_DEC_K2)
+    return unet + 2 * guid, guid, STAGE2_ENC_K2, 0
+
+
+def stage2_launches(ratio: int = 10):
+    """(K1, K1-bwd, K2, K3) of the stage-II phase: the uninterrupted run's
+    STAGE2_STEPS steps and eval epoch (STAGE2_EVAL_IMAGES images at
+    STAGE2_SIZE, as EVAL_PER_IMAGE), the resumed run's steps from
+    STAGE2_SAVE."""
+    steps = list(range(STAGE2_STEPS)) + list(range(STAGE2_SAVE,
+                                                   STAGE2_STEPS))
+    per = [stage2_per_step(s % ratio == 0) for s in steps]
+    per += [EVAL_PER_IMAGE[(STAGE2_SIZE, STAGE2_SIZE)]] * STAGE2_EVAL_IMAGES
+    return tuple(map(sum, zip(*per)))
+
+
+def _fingerprints(tensors) -> torch.Tensor:
+    """Per tensor the sum of its f32 bit patterns as int64 (on the host): a
+    tensor whose bits moved almost surely sums otherwise."""
+    return torch.stack([t.detach().view(torch.int32).sum(dtype=torch.int64)
+                        for t in tensors]).cpu()
+
+
+def stage2_path(seed: int):
+    """The stage-II phase: ``train.trainer_stage2.main`` on
+    configs/train_stage2.yaml as shipped (three full SD1.5 UNets beside the
+    OneDC generator and the CLIP text encoder, AdamW on both turns, remat,
+    512x512 batch 4) with only the data and run directories, a seeded
+    random LPIPS file and the step count set, each printed; seeded
+    512x512 training and eval PNGs in a temporary folder. Steps seen
+    through a wrapper of ``Stage2Trainer.train_one_step``: s/step by turn,
+    peak memory, launches as ``stage2_per_step``, finite losses, which
+    tensors moved (the generator's moments on generator turns only and
+    its parameters never in steps 0-2: the first update has lr 0; the
+    critic's moments every step, its parameters from step 1), a finite
+    non-zero gradient on the fake UNet's first ``attn1.to_q`` (only K1-bwd
+    carries it there). Then the frozen VAE, codec and real UNet bit for bit
+    as before the first step; the real UNet's CFG as one batch against its
+    two forwards (STAGE2_CFG_TOL); the text encoder's ms; ``--resume`` in a
+    fresh trainer from the checkpoint at STAGE2_SAVE, equal to the
+    uninterrupted run bit for bit. Returns each kernel's launches over
+    both runs."""
+    from onedc_tpu_torch.config import load_config
+    from onedc_tpu_torch.data.images import save_image
+    from onedc_tpu_torch.nn.lpips import random_lpips_weights
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.train import trainer_stage2 as t2
+    from onedc_tpu_torch.utils.logging import read_metrics
+    from onedc_tpu_torch.utils.safetensors import save_safetensors
+
+    counters = ((k1, "launches"), (k1, "bwd_launches"), (k2, "launches"),
+                (k2, "conv_launches"))
+    records, frozen_before = [], {}
+    step_fn = t2.Stage2Trainer.train_one_step
+
+    def groups(tr):
+        out = {}
+        for tag, st, names in (("gen", tr.gen_state, tr.names["gen"]),
+                               ("guid", tr.guid_state, tr.names["guid"])):
+            out[f"{tag}_params"] = st.optimizer.params
+            out[f"{tag}_moments"] = list(
+                st.optimizer.named_state(names).values())
+        return out
+
+    def observed(self, step):
+        if not frozen_before:
+            named = dict(self.onedc.named_parameters())
+            named.update({f"guidance.{n}": p for n, p in
+                          self.guidance.named_parameters()})
+            frozen_before.update({
+                n: p.detach().cpu() for n, p in named.items()
+                if n.split(".")[0] in ("vae", "codec")
+                or n.startswith("guidance.real_unet.")})
+        before_fp = {k: _fingerprints(v) for k, v in groups(self).items()}
+        before = tuple(getattr(m, a) for m, a in counters)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = step_fn(self, step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tuple(getattr(m, a) - b
+                         for (m, a), b in zip(counters, before))
+        moved = {k: int((_fingerprints(v) != before_fp[k]).sum())
+                 for k, v in groups(self).items()}
+        grad = dict(self.guidance.named_parameters())[FAKE_ATTN1].grad
+        records.append(dict(
+            step=step, gen_turn=step % self.update_ratio == 0, wall_s=wall,
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            launches=launches, moved=moved,
+            attn1_grad_finite=bool(torch.isfinite(grad).all()),
+            attn1_grad_max=float(grad.abs().max()), **metrics))
+        r = records[-1]
+        print(f"stage2 step {step} ({'generator turn' if r['gen_turn'] else 'latents only'}): "
+              f"{wall:.3f} s, peak {r['peak_gib']:.2f} GiB, K1/K1-bwd/K2/K3 "
+              f"launches {launches}, tensors moved {moved}, fake attn1.to_q "
+              f"max|grad| {r['attn1_grad_max']:.3e}; " + json.dumps(metrics),
+              flush=True)
+        return metrics
+
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_stage2_"))
+    try:
+        rng = np.random.default_rng(seed + 23)
+        for sub, n in (("train", STAGE2_TRAIN_IMAGES),
+                       ("eval", STAGE2_EVAL_IMAGES)):
+            (tmp / sub).mkdir()
+            for i in range(n):
+                img = next(synthetic_batches(int(rng.integers(1 << 30)), 1,
+                                             STAGE2_SIZE))["image"][0]
+                save_image(img, tmp / sub / f"{sub}{i}.png")
+        save_safetensors(random_lpips_weights(seed), tmp / "lpips.safetensors")
+        run = tmp / "run"
+        overrides = dict(lpips_weights=str(tmp / "lpips.safetensors"),
+                         train_data=str(tmp / "train"),
+                         eval_data=str(tmp / "eval"), run_dir=str(run),
+                         total_steps=STAGE2_STEPS, save_interval=STAGE2_SAVE,
+                         log_interval=1)
+        for key, value in overrides.items():
+            print(f"stage2 override: {key} = {value!r}", flush=True)
+        argv = ["--config", "configs/train_stage2.yaml"] + [
+            f"{k}={json.dumps(v)}" for k, v in overrides.items()]
+        cfg = load_config("configs/train_stage2.yaml", overrides)
+        if (cfg.get("optimizer", "adamw") != "adamw"
+                or cfg.get("gradient_checkpointing", True) is not True
+                or cfg["batch_size"] != 4
+                or cfg["dfake_gen_update_ratio"] != 10):
+            raise AssertionError("the phase does not run the yaml's recipe")
+        free = shutil.disk_usage(tmp).free
+        print(f"stage2: {free / 1e9:.1f} GB free for the checkpoint",
+              flush=True)
+
+        for mod, attr in counters:
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t2.Stage2Trainer.train_one_step = observed
+        try:
+            t0 = time.perf_counter()
+            whole = t2.main(argv)
+            torch.cuda.synchronize()
+            whole_s = time.perf_counter() - t0
+            got_whole = tuple(getattr(m, a) for m, a in counters)
+
+            # the frozen parts, bit for bit
+            named = dict(whole.onedc.named_parameters())
+            named.update({f"guidance.{n}": p for n, p in
+                          whole.guidance.named_parameters()})
+            moved = [n for n, t in frozen_before.items()
+                     if not torch.equal(t, named[n].detach().cpu())]
+            if moved:
+                raise AssertionError(f"frozen tensors moved: {moved[:4]}")
+            print(f"stage2: VAE, codec and real UNet, all "
+                  f"{len(frozen_before)} tensors, bit-identical after "
+                  f"{len(records)} steps", flush=True)
+            frozen_before.clear()
+            del named
+
+            # CFG as one batch of 2B rows against its two forwards
+            g = whole.guidance
+            cgen = torch.Generator(device="cuda").manual_seed(seed + 29)
+            lat = torch.randn((4, 4, STAGE2_SIZE // 8, STAGE2_SIZE // 8),
+                              generator=cgen, device="cuda")
+            t = torch.randint(g.min_step, g.max_step + 1, (4,),
+                              generator=cgen, device="cuda")
+            text, uncond = whole.embed([""] * 4)
+            text = text + 0.1 * torch.randn(text.shape, generator=cgen,
+                                            device="cuda")
+            with torch.no_grad():
+                one = g._predict_noise(g.real_unet, lat, text, uncond, t,
+                                       g.real_guidance_scale)
+                eu = g.real_unet(lat, t, uncond)
+                et = g.real_unet(lat, t, text)
+                two = eu + g.real_guidance_scale * (et - eu)
+            cfg_err = float((one - two).norm() / two.norm())
+            print(f"stage2: real UNet CFG as one batch of 8 rows against "
+                  f"two of 4: relative L2 {cfg_err:.3e} (tol "
+                  f"{STAGE2_CFG_TOL})", flush=True)
+            if not cfg_err <= STAGE2_CFG_TOL:
+                raise AssertionError(f"CFG batching: {cfg_err}")
+            del one, two, eu, et, lat
+
+            ids = whole.text.tokenize([""] * 4)
+            text_ms = [_wall_ms(lambda: whole.text.encode(ids))
+                       for _ in range(4)]
+            print(f"stage2: text encoder, 4 captions: "
+                  f"{', '.join(f'{m:.2f}' for m in text_ms)} ms", flush=True)
+
+            tensors, meta = whole.checkpoint_state()
+            t0 = time.perf_counter()
+            want = {k: v.cpu() for k, v in tensors.items()}
+            host_s = time.perf_counter() - t0
+            del tensors, whole, g, text, uncond
+            torch.cuda.synchronize()
+            left = torch.cuda.memory_allocated() - base
+            peak = max(r["peak_gib"] for r in records)
+            print(f"stage2: uninterrupted run {whole_s:.1f} s, peak "
+                  f"{peak:.2f} GiB; its state to the host in {host_s:.1f} s;"
+                  f" device memory after it is dropped {left / 2**20:+.1f} "
+                  f"MiB", flush=True)
+            if left > 256 * 2 ** 20:
+                raise AssertionError(f"a dropped stage-II trainer still "
+                                     f"holds {left / 2**30:.2f} GiB")
+
+            for mod, attr in counters:
+                setattr(mod, attr, 0)
+            t0 = time.perf_counter()
+            resumed = t2.main(argv + ["--resume"])
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            got_resumed = tuple(getattr(m, a) for m, a in counters)
+        finally:
+            t2.Stage2Trainer.train_one_step = step_fn
+        tensors, meta_r = resumed.checkpoint_state()
+        if meta_r != meta or sorted(tensors) != sorted(want):
+            raise AssertionError(f"resumed state {meta_r}, uninterrupted "
+                                 f"{meta}")
+        differ = [k for k, v in tensors.items()
+                  if not torch.equal(v.cpu(), want[k])]
+        if differ:
+            raise AssertionError(f"{len(differ)} of {len(want)} tensors of "
+                                 f"the resumed run differ from the "
+                                 f"uninterrupted run's, e.g. {differ[:4]}")
+        n_bytes = sum(v.numel() * v.element_size() for v in want.values())
+        del tensors, resumed, want
+        print(f"stage2: resumed run {resume_s:.1f} s; its state, "
+              f"{n_bytes / 1e9:.2f} GB, equals the uninterrupted run's bit "
+              f"for bit ({meta})", flush=True)
+        rows = read_metrics(run)
+    finally:
+        shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+
+    for r in records:
+        want_l = stage2_per_step(r["gen_turn"])
+        if r["launches"] != want_l:
+            raise AssertionError(f"step {r['step']}: launches "
+                                 f"{r['launches']}, expected {want_l}")
+        keys = ["loss_fake_mean", "guidance_cls_loss"] + (
+            ["loss_dm", "gen_cls_loss", "pix"] if r["gen_turn"] else [])
+        bad = {k: r.get(k) for k in keys
+               if not np.isfinite(r.get(k, float("nan")))}
+        if bad:
+            raise AssertionError(f"step {r['step']}: {bad}")
+        m = r["moved"]
+        rules = {"gen_params": m["gen_params"] == 0,
+                 "gen_moments": (m["gen_moments"] > 0) == r["gen_turn"],
+                 "guid_moments": m["guid_moments"] > 0,
+                 "guid_params": (m["guid_params"] > 0) == (r["step"] > 0)}
+        if not all(rules.values()) or not (r["attn1_grad_finite"]
+                                           and r["attn1_grad_max"] > 0):
+            raise AssertionError(f"step {r['step']}: moved {m}, fake attn1 "
+                                 f"gradient max {r['attn1_grad_max']}")
+    got = tuple(a + b for a, b in zip(got_whole, got_resumed))
+    want_launches = stage2_launches()
+    train = [r for r in rows if "train2/loss_fake_mean" in r]
+    evals = [r for r in rows if "eval2/total_loss" in r]
+    ckpt = [r for r in rows if any(k.startswith("checkpoint/") for k in r)]
+    if [r["step"] for r in evals] != [STAGE2_SAVE] or len(train) != len(
+            records):
+        raise AssertionError(f"metrics.jsonl rows {rows}")
+    by_turn = {kind: [round(r["wall_s"], 4) for r in records
+                      if r["gen_turn"] == (kind == "generator")]
+               for kind in ("generator", "latents_only")}
+    print(f"stage2: s/step by turn {json.dumps(by_turn)}; peak "
+          f"{peak:.2f} GiB; checkpoint {json.dumps(ckpt)}", flush=True)
+    print("stage2 records " + json.dumps(dict(
+        steps=records, by_turn=by_turn, peak_gib=peak, cfg_rel_l2=cfg_err,
+        text_encoder_ms=text_ms, checkpoint=ckpt, eval=evals[0],
+        state_bytes=n_bytes)), flush=True)
+    print(f"stage2: K1/K1-bwd/K2/K3 launches {got}, expected "
+          f"{want_launches}", flush=True)
+    if got != want_launches:
+        raise AssertionError(f"stage2 launches {got}, expected "
+                             f"{want_launches}")
+    return {"K1": got[0], "K1-bwd": got[1], "K2": got[2], "K3": got[3]}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3621,6 +3960,11 @@ def main():
         stage1 = stage1_yaml_path(args.seed)
         print(f"stage-I yaml phase: {time.perf_counter() - t0:.1f} s",
               flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        stage2 = stage2_path(args.seed)
+        print(f"stage-II phase: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     # the bf16 kernels run on the serving paths, the f32 ones on the
     # training paths
@@ -3636,7 +3980,8 @@ def main():
                "tiled": tiled["K2"]}
     k1_f32, k1_bwd, k2_f32, k3 = (
         {"train": train[k], "train_loop": train_loop[k],
-         "stage1_yaml": stage1[k]} for k in ("K1", "K1-bwd", "K2", "K3"))
+         "stage1_yaml": stage1[k], "stage2": stage2[k]}
+        for k in ("K1", "K1-bwd", "K2", "K3"))
     kernels = [
         summarize("flash_attention_fwd_bf16",
                   "onedc_tpu_torch/csrc/flash_attention.cu",

@@ -181,6 +181,19 @@ class OneDC(nn.Module):
                                                     training, noise)
         return enc_dict, nhwc(pred)
 
+    @torch.no_grad()
+    def training_latents(self, image, noise: Optional[torch.Tensor] = None):
+        """(x_latent, x_latent_recon) of the training forward on image (B,
+        H, W, 3), NCHW, without autograd and without the VAE decode that
+        only the image needs: the stage-II steps that feed the critic
+        without a generator update (the JAX trainer's ``_gen_latents``,
+        whose unused image XLA drops)."""
+        x = image.permute(0, 3, 1, 2)
+        x_latent = self.vae_encode_image(x)
+        enc_dict = self.codec(x, x_latent, training=True, noise=noise)
+        return x_latent, self._one_step_x0(enc_dict["x_hat"],
+                                           enc_dict["y_semantic"])
+
     def _recorded_forward(self, x, x_latent, targets, training: bool, noise):
         """Codec, one-step generation and the Codeformer's losses: (enc_dict,
         pred NCHW)."""

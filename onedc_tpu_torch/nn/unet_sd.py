@@ -1,8 +1,9 @@
-"""SD1.5 UNet2DConditionModel with the OneDC control input: the one-step
-generator.
+"""SD1.5 UNet2DConditionModel: the plain text-conditioned UNet of the
+stage-II critics (``SD15UNet``) and, with the OneDC control input, the
+one-step generator (``SD15CodecUNet``).
 
-JAX counterpart: ``onedc_tpu/nn/unet_sd.py`` (:40-221, :289-373). As in
-the JAX package:
+JAX counterpart: ``onedc_tpu/nn/unet_sd.py`` (:40-221, :224-286,
+:289-373). As in the JAX package:
 
 - ``conv_in`` takes the 320-ch codec control tensor; ``vae_reduction``
   (``ReduceResblock``) turns it into the 4-ch pseudo noisy latent;
@@ -231,21 +232,31 @@ class ReduceResblock(nn.Module):
         return h + self.short_cut(x)
 
 
-class SD15CodecUNet(nn.Module):
-    """forward(control (B, in_ch, H/8, W/8), timesteps (B,), context
-    (B, T, context_dim)) -> (eps (B, 4, H/8, W/8), reduced (same))."""
+class SD15UNet(nn.Module):
+    """The standard SD1.5 ``UNet2DConditionModel``: 4-ch latent in and out,
+    text cross-attention (JAX ``SD15UNet`` :224), the DMD2 critic pair of
+    stage II (``models/dmd.py``).
 
-    def __init__(self, in_ch: int = 320, out_ch: int = 4, vae_ch: int = 4,
+    forward(sample (B, in_ch, h, w), timesteps (B,), context (B, T,
+    context_dim), classify=False) -> eps (B, out_ch, h, w), or with
+    ``classify`` the mid-block feature (B, C_last, h/8, w/8) for the GAN
+    head (JAX :267)."""
+
+    def __init__(self, in_ch: int = 4, out_ch: int = 4,
                  block_channels: Sequence[int] = (320, 640, 1280, 1280),
                  layers_per_block: int = 2, attention_head_dim: int = 8,
                  context_dim: int = 768):
         super().__init__()
+        self._build(in_ch, out_ch, block_channels, layers_per_block,
+                    attention_head_dim, context_dim)
+
+    def _build(self, in_ch, out_ch, block_channels, layers_per_block,
+               attention_head_dim, context_dim):
         ch = list(block_channels)
         heads = attention_head_dim  # SD1.5: 8 heads at every level
         temb_ch = ch[0] * 4
         self.ch0 = ch[0]
         self.n_levels = len(ch)
-        self.vae_reduction = ReduceResblock(in_ch, vae_ch)
         self.time_embedding = TimestepEmbedding(ch[0], temb_ch)
         self.conv_in = conv3x3(in_ch, ch[0])
 
@@ -276,8 +287,8 @@ class SD15CodecUNet(nn.Module):
         self.conv_out = conv3x3(ch[0], out_ch)
         self.n_res = n_res
 
-    def forward(self, sample, timesteps, context):
-        reduced = self.vae_reduction(sample)
+    def _down_mid(self, sample, timesteps, context):
+        """(mid-block feature, skips, temb)."""
         t_emb = sinusoidal_time_embedding(
             timesteps, self.ch0, flip_sin_to_cos=True,
             downscale_freq_shift=0.0)
@@ -288,13 +299,41 @@ class SD15CodecUNet(nn.Module):
         for i in range(self.n_levels):
             h, s = getattr(self, f"down_blocks_{i}")(h, temb, context)
             skips.extend(s)
+        return self.mid_block(h, temb, context), skips, temb
 
-        h = self.mid_block(h, temb, context)
-
+    def _up(self, h, skips, temb, context):
         for i in range(self.n_levels):
             blk = skips[-self.n_res:]
             del skips[-self.n_res:]
             h = getattr(self, f"up_blocks_{i}")(h, blk, temb, context)
-
         h = F.silu(self.conv_norm_out(h))
-        return self.conv_out(h), reduced
+        return self.conv_out(h)
+
+    def forward(self, sample, timesteps, context, classify: bool = False):
+        h, skips, temb = self._down_mid(sample, timesteps, context)
+        if classify:
+            return h  # the bottleneck feature for the GAN head
+        return self._up(h, skips, temb, context)
+
+
+class SD15CodecUNet(SD15UNet):
+    """forward(control (B, in_ch, H/8, W/8), timesteps (B,), context
+    (B, T, context_dim)) -> (eps (B, 4, H/8, W/8), reduced (same)): the
+    SD1.5 UNet with ``conv_in`` on the codec's control tensor and the
+    ``vae_reduction`` branch."""
+
+    def __init__(self, in_ch: int = 320, out_ch: int = 4, vae_ch: int = 4,
+                 block_channels: Sequence[int] = (320, 640, 1280, 1280),
+                 layers_per_block: int = 2, attention_head_dim: int = 8,
+                 context_dim: int = 768):
+        nn.Module.__init__(self)
+        # registered first: seeded initialisations and the optimizers walk
+        # the parameters in registration order
+        self.vae_reduction = ReduceResblock(in_ch, vae_ch)
+        self._build(in_ch, out_ch, block_channels, layers_per_block,
+                    attention_head_dim, context_dim)
+
+    def forward(self, sample, timesteps, context):
+        reduced = self.vae_reduction(sample)
+        h, skips, temb = self._down_mid(sample, timesteps, context)
+        return self._up(h, skips, temb, context), reduced

@@ -296,6 +296,28 @@ def create_train_state(model: nn.Module, lr: float = 5e-5,
     return TrainState(model, opt, tuple(frozen))
 
 
+def create_stage2_states(onedc: nn.Module, guidance: nn.Module,
+                         gen_lr: float = 1e-6, guid_lr: float = 1e-6,
+                         warmup_steps: int = 500, grad_clip: float = 10.0,
+                         optimizer: str = "adamw"
+                         ) -> Tuple[TrainState, TrainState]:
+    """The stage-II pair (JAX ``trainer_stage2.py:create_stage2_states``
+    :40): the generator's state with ``vae`` and ``codec`` frozen (the
+    one-step UNet trains) and the guidance's with ``real_unet`` frozen (the
+    fake UNet and the GAN head train), each AdamW or Adafactor with the
+    same schedule and clip. The frozen parts stop requiring gradients: no
+    turn differentiates them (JAX differentiates only the state being
+    updated), so they hold no autograd record."""
+    gen = create_train_state(onedc, gen_lr, warmup_steps, grad_clip,
+                             frozen=("vae", "codec"), optimizer=optimizer)
+    guid = create_train_state(guidance, guid_lr, warmup_steps, grad_clip,
+                              frozen=("real_unet",), optimizer=optimizer)
+    for state in (gen, guid):
+        for _, p in split_frozen(state.model, state.frozen)[1]:
+            p.requires_grad_(False)
+    return gen, guid
+
+
 def make_train_step(loss: Optional[RDLoss] = None, grad_accum: int = 1,
                     remat: bool = False,
                     codeformer_loss_weight: float = 1e-3,

@@ -23,6 +23,13 @@ flavour: such a tree saved with "/"-joined keys, as
 ``flat_state_dict`` reads the metric networks' converted files
 (``nn/{lpips,dists,inception}.py``), whose few leaves that are neither a
 kernel nor a bias keep their name and layout.
+
+Stage II: the ``SDGuidance`` tree converts as any other
+(``state_dict_from_jax``); ``clip_state_dict_from_flax`` carries
+transformers' Flax CLIP text tree across (its ``embedding`` leaves are an
+``nn.Embedding``'s ``weight``); ``flat_jax_from_state_dict`` goes the
+other way, a port state dict of convs, linears and norms as the
+"/"-joined JAX tree (``convert_weights guidance`` writes it).
 """
 
 from __future__ import annotations
@@ -102,4 +109,47 @@ def flat_state_dict(flat: Mapping[str, object], as_is: Sequence[str] = ()
         else:
             key, arr = convert_leaf(path, arr)
         out[key] = tensor_from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def clip_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """transformers' ``FlaxCLIPTextModel`` parameters -> the state dict of
+    ``nn/text_encoder.py:CLIPTextModel`` (same module paths)."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        arr = np.asarray(value, np.float32)
+        *mods, leaf = path.split("/")
+        if leaf == "embedding":
+            key = ".".join(mods + ["weight"])
+        else:
+            key, arr = convert_leaf(path, arr)
+        out[key] = tensor_from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def flat_jax_from_state_dict(state: Mapping[str, torch.Tensor],
+                             prefix: str = "params/"
+                             ) -> Dict[str, np.ndarray]:
+    """A port state dict of convs, linears and norms -> the "/"-joined
+    JAX tree, the inverse of ``convert_leaf``: a 4-d ``weight`` is an HWIO
+    ``kernel``, a 2-d one an (in, out) ``kernel``, a 1-d one a norm's
+    ``scale``; biases as they are."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in state.items():
+        arr = value.detach().float().cpu().numpy()
+        *mods, leaf = key.split(".")
+        if leaf == "weight":
+            if arr.ndim == 4:
+                arr, leaf = arr.transpose(2, 3, 1, 0), "kernel"
+            elif arr.ndim == 2:
+                arr, leaf = arr.T, "kernel"
+            elif arr.ndim == 1:
+                leaf = "scale"
+            else:
+                raise ValueError(f"{key}: weight of rank {arr.ndim}")
+        elif leaf != "bias":
+            raise ValueError(f"{key}: unknown leaf kind {leaf!r}")
+        out[prefix + "/".join(mods + [leaf])] = np.ascontiguousarray(arr)
     return out

@@ -18,9 +18,16 @@ Weights must arrive on disk; nothing is downloaded.
   python -m onedc_tpu_torch.utils.convert_weights lpips \\
       --vgg vgg16.pth --lins lpips_lins.pth --out lpips.safetensors
 
-The JAX package's ``onedc`` and ``guidance`` subcommands are not ported
-yet (the release layout loads directly: ``eval/inference.py``
-``checkpoint_path=``).
+  # a stage-II SDGuidance state dict (model_2.safetensors) -> the
+  # SDGuidance tree ("/"-joined, HWIO), guidance.* overrides as in JAX
+  python -m onedc_tpu_torch.utils.convert_weights guidance \\
+      --src model_2.safetensors --out guidance.safetensors
+
+The guidance file holds what the source fills: ``fake_unet``, the head,
+and ``real_unet`` where the source carries it (JAX writes its initial
+values for a missing ``real_unet``; the port has no flax initialiser to
+draw them). The JAX package's ``onedc`` subcommand is not ported yet (the
+release layout loads directly: ``eval/inference.py`` ``checkpoint_path=``).
 """
 
 from __future__ import annotations
@@ -71,6 +78,23 @@ def convert_lpips(vgg, lins, out):
     save_safetensors(convert_torch_vgg16(vgg_state, lin_weights), out)
 
 
+def convert_guidance(src, out, overrides=()):
+    """``port_guidance_checkpoint`` of ``src`` onto an ``SDGuidance`` built
+    from the ``guidance.*`` overrides (on the meta device: keys and shapes
+    only), written in the JAX tree's layout."""
+    from ..config import parse_cli_overrides
+    from ..models.dmd import SDGuidance
+    from .convert import flat_jax_from_state_dict
+    from .port_torch import port_guidance_checkpoint
+
+    cfg = parse_cli_overrides(overrides)
+    with torch.device("meta"):
+        guidance = SDGuidance(**dict(cfg.get("guidance", {})))
+    state = port_guidance_checkpoint(src, guidance.state_dict())
+    save_safetensors(flat_jax_from_state_dict(
+        {k: v for k, v in state.items() if not v.is_meta}), out)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -89,13 +113,21 @@ def main(argv=None):
     s.add_argument("--lins", required=True)
     s.add_argument("--out", required=True)
 
-    args = p.parse_args(argv)
+    s = sub.add_parser("guidance")
+    s.add_argument("--src", required=True)
+    s.add_argument("--out", required=True)
+
+    args, overrides = p.parse_known_args(argv)
+    if overrides and args.cmd != "guidance":
+        p.error(f"unrecognized arguments: {' '.join(overrides)}")
     if args.cmd == "inception":
         convert_inception(args.src, args.out)
     elif args.cmd == "dists":
         convert_dists(args.vgg, args.dists, args.out)
     elif args.cmd == "lpips":
         convert_lpips(args.vgg, args.lins, args.out)
+    elif args.cmd == "guidance":
+        convert_guidance(args.src, args.out, overrides)
     print(f"wrote {args.out}")
 
 

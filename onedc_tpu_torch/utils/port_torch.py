@@ -14,6 +14,10 @@ the stage-I Codeformer need:
 - a MaskGIT-VQGAN torch state dict            -> ``vqgan.*``
   (``port_vqgan_state``, JAX :361-364; wired no further than the JAX
   package wires it: ``port_onedc_checkpoint`` takes no VQGAN path)
+- an ``SDGuidance`` state dict (``model_2.safetensors`` of a stage-II
+  run)                                          -> ``SDGuidance`` keys
+  (``port_guidance_state`` / ``port_guidance_checkpoint``, JAX :259-266,
+  :376-410, :498)
 
 The rule tables are the JAX package's, unchanged: they rename a reference
 module path onto the module path of the flax tree, whose module names the
@@ -285,6 +289,16 @@ _CODEFORMER_RULES: List[Rule] = [
 
 _SWIN_SKIP = (r"upper_lower_mask", r"left_right_mask", r"relative_indices")
 
+# the SDGuidance GAN head: the reference's nn.Sequential indices -> the
+# ClsHead names (models/dmd.py)
+_CLS_HEAD_RULES: List[Rule] = [
+    (r"^cls_pred_branch\.0\.", r"cls_pred_branch/conv0."),
+    (r"^cls_pred_branch\.1\.", r"cls_pred_branch/norm0."),
+    (r"^cls_pred_branch\.3\.", r"cls_pred_branch/conv1."),
+    (r"^cls_pred_branch\.4\.", r"cls_pred_branch/norm1."),
+    (r"^cls_pred_branch\.6\.", r"cls_pred_branch/conv_out."),
+]
+
 _VQGAN_RULES: List[Rule] = [
     (r"^quantize\.embedding\.weight$", r"quantize/embedding"),
     (r"^(encoder|decoder)\.conv_in\.", r"\1/conv_in."),
@@ -373,6 +387,36 @@ def port_codeformer_state(state: Mapping[str, object]
                            raw_keys=(r"\.pos_embedding$",))
 
 
+def port_guidance_state(state: Mapping[str, object]
+                        ) -> Dict[str, np.ndarray]:
+    """An ``SDGuidance`` state dict -> ``SDGuidance`` keys: ``real_unet`` /
+    ``fake_unet`` are plain SD1.5 UNets in diffusers naming, renamed by the
+    UNet rules; ``cls_pred_branch`` maps its Sequential indices onto the
+    ``ClsHead`` names. ``real_unet`` may be absent (the reference deletes
+    it under ``gan_alone``). The DDIM ``alphas_cumprod`` buffer and the
+    FSDP ``dummy_network`` placeholder the reference persists are
+    skipped (recomputed, or nothing, here)."""
+    skip = ("alphas_cumprod", "dummy_network")
+    subs: Dict[str, Dict[str, object]] = {"real_unet": {}, "fake_unet": {}}
+    rest: Dict[str, object] = {}
+    for k, v in state.items():
+        head = k.split(".", 1)[0]
+        if head in skip:
+            continue
+        if head in subs:
+            subs[head][k.split(".", 1)[1]] = v
+        elif head == "cls_pred_branch":
+            rest[k] = v
+        else:
+            raise KeyError(f"unknown guidance submodule in checkpoint: {k}")
+    flat: Dict[str, np.ndarray] = {}
+    for prefix, sd in subs.items():
+        for kk, vv in port_state_dict(sd, _SD_UNET_RULES).items():
+            flat[f"{prefix}.{kk}"] = vv
+    flat.update(port_state_dict(rest, _CLS_HEAD_RULES))
+    return flat
+
+
 # ---------------------------------------------------------------------------
 # assembly
 # ---------------------------------------------------------------------------
@@ -442,3 +486,23 @@ def port_onedc_checkpoint(unet_path: Optional[StateSource] = None,
         fills["codeformer"] = port_codeformer_state(
             _load_state(codeformer_path))
     return _assemble(reference, fills, require_complete)
+
+
+def port_guidance_checkpoint(src: StateSource,
+                             reference: Mapping[str, torch.Tensor],
+                             require_complete: Tuple[str, ...] = (
+                                 "fake_unet", "cls_pred_branch")
+                             ) -> Dict[str, torch.Tensor]:
+    """The ``guidance_ckpt`` warm start: an ``SDGuidance`` state dict
+    (file or mapping, the reference's naming) over ``reference``, the
+    target ``SDGuidance``'s ``state_dict()``. ``real_unet`` must be
+    complete only where the checkpoint carries it."""
+    flat = port_guidance_state(_load_state(src))
+    fills: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, value in flat.items():
+        sub, rest = key.split(".", 1)
+        fills.setdefault(sub, {})[rest] = value
+    req = tuple(require_complete)
+    if "real_unet" in fills and "real_unet" not in req:
+        req = req + ("real_unet",)
+    return _assemble(reference, fills, req)

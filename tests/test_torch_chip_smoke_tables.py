@@ -450,3 +450,79 @@ def test_chip_smoke_stage1_phase_runs_the_yaml(tmp_path):
     assert {(r, round(8 * s)) for r, s in picks} == {(512, 8), (1024, 2)}
     assert cs.stage1_launches() == (174, 87, 684, 252)
     assert cs.TRAIN_OVERRIDES["gradient_checkpointing"] is False
+
+
+def test_chip_smoke_stage2_tables(monkeypatch):
+    """The stage-II phase's tables: at full width on meta tensors, a
+    512x512 batch-4 generator forward and the guidance's two forwards give
+    K1 and K2 the shapes of the "stage2" buckets (the real UNet's CFG rows:
+    "stage512"'s K1 shape), and their counts add up to ``stage2_per_step``
+    with remat's recompute; the phase runs the yaml's recipe."""
+    from collections import Counter
+
+    import chip_smoke as cs
+    from onedc_tpu_torch.config import load_config
+    from onedc_tpu_torch.models.dmd import SDGuidance
+    from onedc_tpu_torch.models.onedc import OneDC
+
+    k1, k2 = _recorded_launches(monkeypatch)
+    b, res = 4, cs.STAGE2_SIZE
+    with torch.device("meta"):
+        model = OneDC()
+        guidance = SDGuidance()
+    image = torch.zeros((b, res, res, 3), device="meta")
+    with torch.no_grad():
+        x_latent, x0 = model.training_latents(image)
+    latents_only = (sum(k1.values()), sum(k2.values()))
+    k1.clear()
+    k2.clear()
+    with torch.no_grad():
+        _, pred = model(image, training=True,
+                        noise=torch.zeros((b, res // 16, res // 16, 128),
+                                          device="meta"))
+    assert pred.shape == image.shape
+    forward = dict(k1), dict(k2)
+    k1.clear()
+    text = torch.zeros((b, 77, 768), device="meta")
+    t = torch.zeros((b,), dtype=torch.int64, device="meta")
+    draws = {"dm_t": t, "dm_noise": x0, "cls_t": t, "cls_noise": x0}
+    with torch.no_grad():
+        guidance.generator_forward(x0, text, text, draws=draws)
+    gen_guidance = dict(k1)
+    k1.clear()
+    draws = {f"{p}_{s}": v for p in ("fake", "real_cls", "fake_cls")
+             for s, v in (("t", t), ("noise", x0))}
+    with torch.no_grad():
+        guidance.guidance_forward(x0, x_latent, text, text, text,
+                                  draws=draws)
+    guid = dict(k1)
+
+    shape, cfg_shape = (b, 4096, 8, 40), (2 * b, 4096, 8, 40)
+    assert dict(cs.K1_TRAIN_SHAPES["stage2"]) == {shape: cs.STAGE2_UNET_K1}
+    assert dict(cs.K1_TRAIN_SHAPES["stage512"]) == {cfg_shape: 5}
+    assert forward[0] == {shape: cs.STAGE2_UNET_K1}
+    assert forward[1] == dict(Counter(dict(cs.K2_TRAIN_SHAPES["stage2"])))
+    assert latents_only == (cs.STAGE2_UNET_K1, cs.STAGE2_ENC_K2)
+    unet, down = cs.STAGE2_UNET_K1, cs.STAGE2_DOWN_K1
+    assert gen_guidance == {shape: unet + down, cfg_shape: unet}
+    assert guid == {shape: unet + 2 * down}
+    k3 = sum(n for _, n in cs.K3_TRAIN_SHAPES["stage2"])
+    assert k3 == cs.STAGE2_DEC_K2
+    assert sum(forward[1].values()) == cs.STAGE2_ENC_K2 + cs.STAGE2_DEC_K2
+    g = unet + 2 * down
+    assert cs.stage2_per_step(True) == (
+        2 * unet + 2 * unet + down + 2 * g, unet + down + g,
+        cs.STAGE2_ENC_K2 + 2 * k3, k3)
+    assert cs.stage2_per_step(False) == (unet + 2 * g, g, cs.STAGE2_ENC_K2,
+                                         0)
+    # steps 0-2 (a generator turn at 0), eval at 2, the resumed step 2
+    assert (cs.STAGE2_STEPS, cs.STAGE2_SAVE) == (3, 2)
+    assert cs.stage2_launches() == tuple(
+        a + 3 * b + 2 * e for a, b, e in zip(
+            cs.stage2_per_step(True), cs.stage2_per_step(False),
+            cs.EVAL_PER_IMAGE[(512, 512)]))
+
+    cfg = load_config(Path(cs.__file__).parent / "configs" /
+                      "train_stage2.yaml", {})
+    assert (cfg["batch_size"], cfg["dfake_gen_update_ratio"]) == (4, 10)
+    assert "optimizer" not in cfg and "gradient_checkpointing" not in cfg

@@ -13,38 +13,49 @@ and ``encode_many``, and each stream must decode in the port to its
 writer's symbols and y_hat.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import write_synthetic_stream
-from onedc_tpu.models.onedc import OneDCRuntime as JaxOneDCRuntime
 from onedc_tpu_torch.models.onedc import OneDCRuntime
+from torch_golden import runtime_reference
 from torch_port_common import (
     IMAGE_TOL,
     port_model,
     seeded_images,
-    tiny_jax_model,
     to_np,
 )
 
 Y_HAT_TOL = 1e-5
 
 
+@pytest.fixture
+def one_thread():
+    """torch on one thread for a test whose checks do not depend on the
+    thread count (bytes, plans, JAX limits), as
+    ``torch_port_common.one_torch_thread`` for a module: the suite's other
+    workers starve a full thread pool. The single and batched decodes keep
+    torch's default, under which their 1e-4 limit was set."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_encodes():
-    """The JAX runtime and its (stream, bpp dict) of each test image."""
-    jm, params = tiny_jax_model()
-    rt = JaxOneDCRuntime(jm, params)
-    rt.update(force=True)
-    return rt, [rt.encode(jnp.asarray(im)) for im in seeded_images()]
+    """The JAX runtime's outputs on the test images (its containers and
+    bpp, four-part loops, decodes, write plans, the ``force_zero_thres``
+    plan and container, the codec-only decode), stored by
+    ``torch_golden/runtime_reference.py``."""
+    return runtime_reference.load("decode")
 
 
 @pytest.fixture(scope="module")
 def jax_side(jax_encodes):
-    rt, encodes = jax_encodes
-    return rt, [bytes(s) for s, _ in encodes]
+    return jax_encodes, [runtime_reference.stream(jax_encodes, f"stream{i}")
+                         for i in range(len(seeded_images()))]
 
 
 @pytest.fixture(scope="module")
@@ -64,31 +75,14 @@ def port_decodes(jax_side, port_rt):
     return out
 
 
-def _jax_loop(jrt, stream):
-    """The JAX four-part loop, step by step: [(indexes, symbols)], y_hat."""
-    crt = jrt._codec_rt
-    from onedc_tpu.entropy.framing import decode_i
-    dec = decode_i(stream, crt.fsq.index_bits, jrt.ds)
-    zh, zw = dec["pad_height"] // jrt.ds, dec["pad_width"] // jrt.ds
-    z = crt.fsq.unpack_indices(dec["bit_stream_z"], zh * zw).reshape(
-        1, zh, zw)
-    crt.entropy_coder.set_stream(dec["bit_stream_y"])
-    st = crt._begin(crt.params, jnp.asarray(z))
-    common, steps = st["common"], []
-    for step in range(4):
-        idx = np.asarray(st["indexes_r"])
-        sym = crt.gaussian_coder.decode_stream_with_indexes(idx)
-        steps.append((idx, sym))
-        st = crt._update[step](crt.params, jnp.asarray(sym), st["means"],
-                               st["y_hat"], common)
-    return steps, np.asarray(st["y_hat"])
-
-
 @pytest.mark.parametrize("which", [0, 1], ids=["64x64", "50x39"])
 def test_port_decodes_jax_stream(jax_side, port_decodes, which):
-    jrt, streams = jax_side
-    stream = streams[which]
-    jax_steps, jax_y_hat = _jax_loop(jrt, stream)
+    gold, streams = jax_side
+    # JAX's four-part loop on the stream (indexes and symbols per step,
+    # y_hat) and its decode, stored
+    jax_steps = [(gold[f"loop{which}/indexes{st}"],
+                  gold[f"loop{which}/symbols{st}"]) for st in range(4)]
+    jax_y_hat = gold[f"loop{which}/y_hat"]
     img, trace = port_decodes[which]
     for step, ((ij, sj), (ip, sp)) in enumerate(zip(jax_steps,
                                                     trace["steps"])):
@@ -98,7 +92,7 @@ def test_port_decodes_jax_stream(jax_side, port_decodes, which):
         np.testing.assert_array_equal(sp, sj, err_msg=f"symbols, step {step}")
     np.testing.assert_allclose(to_np(trace["y_hat"]), jax_y_hat,
                                rtol=0, atol=Y_HAT_TOL)
-    ref = np.asarray(jrt.decode(stream=stream))
+    ref = gold[f"decoded{which}"]
     assert img.shape == ref.shape and img.dtype == torch.float32
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=IMAGE_TOL)
 
@@ -120,6 +114,7 @@ def test_decode_batch_equals_single_decodes(jax_side, port_rt,
                                    atol=1e-4)
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_write_synthetic_stream_round_trips(port_rt):
     stream, y_hat, steps = write_synthetic_stream(port_rt, 64, 128, seed=1)
     trace = {}
@@ -135,29 +130,25 @@ def test_write_synthetic_stream_round_trips(port_rt):
     assert all(ms > 0 for ms in stage_ms.values())
 
 
-def _plan_diff(jrt, port_rt, image) -> str:
-    """Where the two write plans of one image differ: the count of
-    differing indexes and symbols at each step."""
-    from onedc_tpu.entropy.framing import get_padding_size
-    _, h, w, _ = image.shape
-    pad = get_padding_size(h, w, jrt.ds)
-    jout = jrt._encode_dev(jrt.params, jrt._pad_replicate(
-        jnp.asarray(image), pad))
+def _plan_diff(gold, which, port_rt, image) -> str:
+    """Where the port's write plan of one image differs from JAX's (stored):
+    the count of differing indexes and symbols at each step."""
     pout = port_rt.write_plan(image)
     return "; ".join(
-        f"step {s}: {int((np.asarray(jout['indexes_w'][s]) != to_np(pout['indexes_w'][s])).sum())} "
-        f"indexes, {int((np.asarray(jout['y_q_w'][s]) != to_np(pout['y_q_w'][s])).sum())} symbols"
+        f"step {s}: {int((gold[f'plan{which}/indexes_w{s}'] != to_np(pout['indexes_w'][s])).sum())} "
+        f"indexes, {int((gold[f'plan{which}/y_q_w{s}'] != to_np(pout['y_q_w'][s])).sum())} symbols"
         for s in range(4))
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["64x64", "50x39"])
+@pytest.mark.usefixtures("one_thread")
 def test_port_encode_writes_jax_bytes(jax_encodes, port_rt, which):
-    jrt, encodes = jax_encodes
+    gold = jax_encodes
     image = seeded_images()[which]
     stream, bpp = port_rt.encode(image)
-    want_stream, want_bpp = encodes[which]
-    assert stream == bytes(want_stream), _plan_diff(jrt, port_rt, image)
-    assert bpp == want_bpp
+    assert stream == runtime_reference.stream(gold, f"stream{which}"), \
+        _plan_diff(gold, which, port_rt, image)
+    assert bpp == runtime_reference.bpp(gold, f"stream{which}")
 
 
 def _assert_decodes_to_plan(rt, stream, plan, row):
@@ -171,6 +162,7 @@ def _assert_decodes_to_plan(rt, stream, plan, row):
     assert torch.equal(trace["y_hat"], plan["y_hat"][row:row + 1])
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_encode_many_and_batch_match_serial(jax_side, port_rt):
     """``encode_many`` over two sizes and ``encode_batch`` of a same-size
     pair write the serial encodes' bytes (the port's copy of
@@ -193,6 +185,7 @@ def test_encode_many_and_batch_match_serial(jax_side, port_rt):
 
 
 @pytest.mark.parametrize("thres", [None, 0.2], ids=["no-skip", "skip-0.2"])
+@pytest.mark.usefixtures("one_thread")
 def test_write_plan_matches_jax_compress(jax_encodes, port_rt, thres):
     """The port's device write plan (VAE + ``LatentCodec.compress``, the
     plan built through the decoder's programs) against the JAX package's
@@ -200,35 +193,35 @@ def test_write_plan_matches_jax_compress(jax_encodes, port_rt, thres):
     image: z indices, CDF indexes and symbols exactly, y_hat within
     Y_HAT_TOL; with ``force_zero_thres`` 0.2 about two thirds of the
     symbols are skipped (index -1), and the containers stay equal."""
-    from onedc_tpu.entropy.framing import get_padding_size
-    jrt = jax_encodes[0]
+    gold = jax_encodes
+    # JAX's plan of the image (``_encode_dev`` of the padded image) and its
+    # container, from a runtime with ``force_zero_thres`` where set; stored
+    key = "plan1" if thres is None else "plan1_skip"
+    want_stream = "stream1" if thres is None else "stream1_skip"
     if thres is not None:
-        jrt = JaxOneDCRuntime(jrt.model.clone(force_zero_thres=thres),
-                              jrt.params)
-        jrt.update(force=True)
         port_rt = OneDCRuntime(port_model(force_zero_thres=thres),
                                device="cpu")
     image = seeded_images()[1]
-    _, h, w, _ = image.shape
-    want = jrt._encode_dev(jrt.params, jrt._pad_replicate(
-        jnp.asarray(image), get_padding_size(h, w, jrt.ds)))
     got = port_rt.write_plan(image)
     np.testing.assert_array_equal(to_np(got["z_indices"]),
-                                  np.asarray(want["z_indices"]))
+                                  gold[f"{key}/z_indices"])
     skipped = 0
     for s in range(4):
         idx = to_np(got["indexes_w"][s])
         assert idx.dtype == (np.uint8 if thres is None else np.int16)
-        np.testing.assert_array_equal(idx, np.asarray(want["indexes_w"][s]))
+        np.testing.assert_array_equal(idx, gold[f"{key}/indexes_w{s}"])
         np.testing.assert_array_equal(to_np(got["y_q_w"][s]),
-                                      np.asarray(want["y_q_w"][s]))
+                                      gold[f"{key}/y_q_w{s}"])
         skipped += int((idx < 0).sum())
     assert (skipped > 0) == (thres is not None)
-    np.testing.assert_allclose(to_np(got["y_hat"]), np.asarray(want["y_hat"]),
+    np.testing.assert_allclose(to_np(got["y_hat"]), gold[f"{key}/y_hat"],
                                rtol=0, atol=Y_HAT_TOL)
-    assert port_rt.encode(image) == jrt.encode(jnp.asarray(image))
+    assert port_rt.encode(image) == (
+        runtime_reference.stream(gold, want_stream),
+        runtime_reference.bpp(gold, want_stream))
 
 
+@pytest.mark.usefixtures("one_thread")
 def test_codec_runtime_decode_and_files_match_jax(jax_encodes, port_rt,
                                                   tmp_path):
     """``encode(..., fp=)`` writes the container to a file (``bpp_file``
@@ -238,7 +231,7 @@ def test_codec_runtime_decode_and_files_match_jax(jax_encodes, port_rt,
     reads it back to the control tensor and semantic tokens of the JAX
     package's ``CodecRuntime.decode``, within the limits of
     ``tests/test_torch_models.py``'s codec decode programs."""
-    jrt = jax_encodes[0]
+    gold = jax_encodes
     image = seeded_images()[1]
     path = tmp_path / "image.bin"
     stream, bpp = port_rt.encode(image, fp=path)
@@ -249,9 +242,12 @@ def test_codec_runtime_decode_and_files_match_jax(jax_encodes, port_rt,
     cond = port_rt.model.vae_encode_image(padded)
     assert port_rt._codec_rt.encode(padded, cond, 39, 50)[0] == stream
     x_hat, y_sem, hw, pad_hw, pad = port_rt._codec_rt.decode(fp=path)
-    jx, jy, jhw, jpad_hw, jpad = jrt._codec_rt.decode(stream=stream)
-    assert (hw, pad_hw, pad) == (jhw, jpad_hw, jpad) == ((50, 39), (64, 64),
-                                                         (0, 25, 0, 14))
+    # JAX ``CodecRuntime.decode(stream=)`` of the container, stored
+    assert stream == runtime_reference.stream(gold, "stream1")
+    jx, jy = gold["codec1/x_hat"], gold["codec1/y_sem"]
+    g = tuple(int(v) for v in gold["codec1/geometry"])
+    assert (hw, pad_hw, pad) == (g[:2], g[2:4], g[4:]) == (
+        (50, 39), (64, 64), (0, 25, 0, 14))
     tol = dict(rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(to_np(x_hat.permute(0, 2, 3, 1)),
                                np.asarray(jx), **tol)

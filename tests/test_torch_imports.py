@@ -51,7 +51,10 @@ REACHED_MODULES = ("onedc_tpu_torch.entropy.bound", "onedc_tpu_torch.config",
                     "onedc_tpu_torch.nn.swin",
                     "onedc_tpu_torch.nn.vqgan",
                     "onedc_tpu_torch.models.codeformer",
-                    "onedc_tpu_torch.utils.remat")
+                    "onedc_tpu_torch.utils.remat",
+                    "onedc_tpu_torch.models.dmd",
+                    "onedc_tpu_torch.nn.text_encoder",
+                    "onedc_tpu_torch.train.trainer_stage2")
 
 
 def test_import_loads_no_jax_and_no_onedc_tpu():
@@ -73,8 +76,8 @@ def test_import_loads_no_jax_and_no_onedc_tpu():
     assert out.returncode == 0, out.stderr
     n_modules, rest = out.stdout.split(" ", 1)
     assert int(n_modules) >= 66
-    # the walk reached every training, quality, tiling and distillation
-    # module
+    # the walk reached every training, quality, tiling, distillation and
+    # stage-II module
     assert rest.strip() == "[] []"
 
 
@@ -133,6 +136,26 @@ def test_trainer_needs_the_card_unless_told_otherwise(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg)
     assert Trainer(cfg, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("entry", ["stage2_trainer", "text_encoder"])
+def test_stage2_entry_points_need_the_card_unless_told_otherwise(entry):
+    """``Stage2Trainer`` and ``TextEncoder`` raise without a GPU unless given
+    a device, before building any weights."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    from onedc_tpu_torch.nn.text_encoder import TextEncoder
+    from onedc_tpu_torch.train.trainer_stage2 import Stage2Trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "text_encoder":
+            TextEncoder()
+        else:
+            Stage2Trainer({"allow_no_lpips": True})
+    if entry == "text_encoder":
+        enc = TextEncoder(device="cpu", config=dict(
+            hidden_size=32, intermediate_size=64, num_hidden_layers=1,
+            num_attention_heads=4))
+        assert enc.encode(enc.tokenize([""])).shape == (1, 77, 32)
 
 
 def test_chip_smoke_fails_without_a_card():

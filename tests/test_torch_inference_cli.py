@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 import yaml
+from torch_golden import runtime_reference
 from torch_port_common import (  # noqa: F401  (a fixture)
     fill_params,
     one_torch_thread,
@@ -28,12 +29,10 @@ from torch_port_common import (  # noqa: F401  (a fixture)
 
 import jax
 import jax.numpy as jnp
-from onedc_tpu.config import Config
 from onedc_tpu.config import parse_cli_overrides as jax_parse_cli_overrides
 from onedc_tpu.data import datasets as jdata
 from onedc_tpu.eval import inference as jinference
 from onedc_tpu.nn.vae import TinyVaeDecoder as JaxTinyVaeDecoder
-from onedc_tpu.utils.checkpoint import load_safetensors as jax_load
 from onedc_tpu.utils.checkpoint import save_safetensors as jax_save
 from onedc_tpu_torch.config import load_config, parse_cli_overrides
 from onedc_tpu_torch.data import images as port_images
@@ -71,14 +70,11 @@ RECON_EXACT_SHARE = 1e-3
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
-@pytest.fixture(scope="module")
-def cli(tmp_path_factory):
-    """The JAX CLI's and the port's runs on one checkpoint (the weights
-    of ``torch_port_common.tiny_jax_model``, as every decode parity test
-    of the port) and two images (64x64 and 50x70, PNGs written by PIL):
-    JAX ``evaluate`` and ``--serving``; the port's ``evaluate``,
-    ``--serving`` and ``--decoder_only`` (fresh ``Evaluator``)."""
-    root = tmp_path_factory.mktemp("cli")
+def cli_inputs(root):
+    """The CLI runs' inputs under ``root``: the checkpoint (the weights of
+    ``torch_port_common.tiny_jax_model``, as every decode parity test of
+    the port), two images (64x64 and 50x70, PNGs written by PIL) and a
+    captions file; returns the shared config."""
     jax_save(tiny_jax_model()[1], root / "ckpt.safetensors")
     (root / "imgs").mkdir()
     rng = np.random.default_rng(0)
@@ -86,19 +82,22 @@ def cli(tmp_path_factory):
         jdata.save_image(rng.uniform(-1, 1, shape).astype(np.float32),
                          root / "imgs" / f"{name}.png")
     (root / "captions.json").write_text(json.dumps({NAMES[0]: CAPTION}))
-    cfg = dict(model=TINY_MODEL, ckpt=str(root / "ckpt.safetensors"),
-               dataset_path=str(root / "imgs"), use_bf16=False, seed=0,
-               captions_file=str(root / "captions.json"))
+    return dict(model=TINY_MODEL, ckpt=str(root / "ckpt.safetensors"),
+                dataset_path=str(root / "imgs"), use_bf16=False, seed=0,
+                captions_file=str(root / "captions.json"))
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jinference, "load_params",
-                   lambda model, c: jax_load(c["ckpt"]))
-        ev = jinference.Evaluator(Config.wrap(dict(
-            cfg, output_path=str(root / "jax"))))
-        ev.evaluate()
-        shutil.copytree(root / "jax", root / "jax_serving")
-        ev.out_dir = root / "jax_serving"
-        ev.evaluate_batched()
+
+@pytest.fixture(scope="module")
+def cli(tmp_path_factory):
+    """The JAX CLI's and the port's runs on one checkpoint and two images
+    (``cli_inputs``): JAX ``evaluate``, ``--serving`` and ``quant=w8a8``
+    (their files stored by ``torch_golden/runtime_reference.py``,
+    unpacked under ``jax``, ``jax_serving`` and ``jax_w8a8``); the port's
+    ``evaluate``, ``--serving`` and ``--decoder_only`` (fresh
+    ``Evaluator``)."""
+    root = tmp_path_factory.mktemp("cli")
+    cfg = cli_inputs(root)
+    runtime_reference.unpack_tree(runtime_reference.load("cli"), root)
 
     (root / "port.yaml").write_text(yaml.safe_dump(dict(cfg, device="cpu")))
     config = ["--config", str(root / "port.yaml")]
@@ -302,20 +301,13 @@ def test_w8a8_cli_matches_the_jax_clis(cli, monkeypatch):
     the w8a8 PNG from the exact one: PSNR to JAX's at most 3 dB under PSNR
     to the exact PNG, both above 25 dB (the floor of
     ``tests/test_quant.py``), and the w8a8 PNG not the exact one."""
-    import onedc_tpu.nn.quant as jq
-
     root, cfg = cli
     name = NAMES[0]  # the 64x64 image: one padded size, one JAX compile
     (root / "imgs_w8a8").mkdir()
     shutil.copy(root / "imgs" / f"{name}.png", root / "imgs_w8a8")
-    cfg = dict(cfg, quant="w8a8", dataset_path=str(root / "imgs_w8a8"))
-    monkeypatch.setattr(jq, "_Q8_MIN_CH", 0)
     monkeypatch.setenv("ONEDC_Q8_MIN_CH", "0")
-    with monkeypatch.context() as mp:
-        mp.setattr(jinference, "load_params",
-                   lambda model, c: jax_load(c["ckpt"]))
-        jinference.Evaluator(Config.wrap(dict(
-            cfg, output_path=str(root / "jax_w8a8")))).evaluate()
+    # the JAX CLI's files under ``jax_w8a8`` (the same run with its gate
+    # ``_Q8_MIN_CH`` at 0) come with the fixture
     main(["--config", str(root / "port.yaml"), "quant=w8a8",
           f"dataset_path={root / 'imgs_w8a8'}",
           f"output_path={root / 'port_w8a8'}"])

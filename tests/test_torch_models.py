@@ -14,8 +14,17 @@ import pytest
 import torch
 
 from onedc_tpu_torch.entropy.gaussian import scale_table
-from torch_port_common import TINY, nchw, nhwc, port_model, tiny_jax_model, \
-    to_np
+from torch_port_common import (  # noqa: F401  (a fixture)
+    TINY,
+    nchw,
+    nhwc,
+    one_torch_thread,
+    port_model,
+    tiny_jax_model,
+    to_np,
+)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

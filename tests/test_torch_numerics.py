@@ -8,7 +8,9 @@ import pytest
 import torch
 
 from onedc_tpu_torch.utils import numerics
-from torch_port_common import TINY, seeded_images
+from torch_port_common import one_torch_thread, TINY, seeded_images  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # the opposite of every pinned flag
 CALLER = {"cudnn.enabled": False, "cudnn.benchmark": True,

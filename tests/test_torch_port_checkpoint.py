@@ -11,7 +11,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
-from torch_port_common import tiny_jax_model
+from torch_port_common import one_torch_thread, tiny_jax_model  # noqa: F401
 
 import twins
 from onedc_tpu.utils.checkpoint import save_safetensors as jax_save
@@ -35,6 +35,8 @@ TINY_MODEL = dict(
     ctrl_ch=32, sd_block_channels=[32, 32, 64, 64], context_dim=64,
     vae_block_channels=[32, 32, 64, 64], vae_attn_patch=4,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _vae_resnet(b, p: str, in_ch: int, out_ch: int):

@@ -22,12 +22,10 @@ has the 64x128 bucket to itself). Tolerances:
 import ast
 from pathlib import Path
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from onedc_tpu.models.onedc import OneDCRuntime as JaxOneDCRuntime
 from onedc_tpu.utils.calibrate import \
     calibrate_stream_params as jax_calibrate
 from onedc_tpu_torch.models.onedc import OneDCRuntime
@@ -39,6 +37,7 @@ from onedc_tpu_torch.utils import aot
 from onedc_tpu_torch.utils.calibrate import calibrate_stream_params, \
     pick_stream_scale
 from onedc_tpu_torch.utils.convert import state_dict_from_jax
+from torch_golden import runtime_reference
 from torch_port_common import (  # noqa: F401  (a fixture)
     IMAGE_TOL,
     one_torch_thread,
@@ -74,15 +73,17 @@ def _images():
 
 @pytest.fixture(scope="module")
 def jax_side():
-    """The JAX runtime, its streams and its pipelined decode_batch (the
-    default schedule: its other schedules agree with it to 5e-4,
-    tests/test_onedc.py:97-136, so each port schedule is held against this
-    one decode)."""
-    jm, params = tiny_jax_model()
-    rt = JaxOneDCRuntime(jm, params)
-    rt.update(force=True)
-    streams = [bytes(rt.encode(jnp.asarray(im))[0]) for im in _images()]
-    return rt, streams, [np.asarray(a) for a in rt.decode_batch(streams)]
+    """The JAX runtime's streams of ``_images()`` and its pipelined
+    decode_batch of them (the default schedule: its other schedules agree
+    with it to 5e-4, tests/test_onedc.py:97-136, so each port schedule is
+    held against this one decode), stored by
+    ``torch_golden/runtime_reference.py``: (the stored arrays, streams,
+    decoded images)."""
+    gold = runtime_reference.load("serving")
+    n = len(_images())
+    return (gold, [runtime_reference.stream(gold, f"stream{i}")
+                   for i in range(n)],
+            [gold[f"decoded{i}"] for i in range(n)])
 
 
 @pytest.fixture(scope="module")
@@ -190,20 +191,16 @@ def test_calibrated_containers_are_jax_bytes(jax_side):
     byte for byte, at under half the raw rate (tests/test_onedc.py:137),
     and decodes it to the writer's y_hat; the runtime's own weights come
     back with scale 1.0."""
-    jrt, _, _ = jax_side
-    _, params = tiny_jax_model()
+    gold, _, _ = jax_side
     rt = OneDCRuntime(port_model(), device="cpu")
     image = _images()[0]
     _, raw = rt.encode(image)
     base = {k: v.clone() for k, v in rt.model.state_dict().items()}
     rt.set_params(calibrate_stream_params(base, 0.05))
     stream, bpp = rt.encode(image)
-    jrt.set_params(jax_calibrate(params, 0.05))
-    try:
-        want, _ = jrt.encode(jnp.asarray(image))
-    finally:
-        jrt.set_params(params)
-    assert stream == bytes(want)
+    # the JAX runtime's container of the image with
+    # ``jax_calibrate(params, 0.05)``, stored
+    assert stream == runtime_reference.stream(gold, "calibrated0")
     assert bpp["bpp_y"] < 0.5 * raw["bpp_y"]
     trace = {}
     assert torch.isfinite(rt.decode(stream, trace)).all()
@@ -290,15 +287,16 @@ def test_serving_encoder_writes_jax_containers(bundle, jax_side, port_rt):
     """ServingEncoder's containers (a chunk of two and a ragged one, one
     with a caption) equal JAX ``encode``'s byte for byte; an image of
     another bucket raises."""
-    jrt = jax_side[0]
+    gold = jax_side[0]
     enc = ServingEncoder(bundle, port_rt.model.state_dict(), device="cpu")
     images = _images()
     caps = ["", "a caption", ""]
     got = enc.encode_batch(images[:3], captions=caps)
-    for im, cap, (stream, bpp) in zip(images, caps, got):
-        want, want_bpp = jrt.encode(jnp.asarray(im), caption=cap)
-        assert stream == bytes(want)
-        assert bpp == pytest.approx(want_bpp)
+    # JAX ``encode(image, caption=cap)``'s containers, stored (the empty
+    # caption is ``encode``'s default)
+    for key, (stream, bpp) in zip(("stream0", "captioned1", "stream2"), got):
+        assert stream == runtime_reference.stream(gold, key)
+        assert bpp == pytest.approx(runtime_reference.bpp(gold, key))
     with pytest.raises(ValueError, match="bundle bucket is 64x64"):
         enc.encode_batch([images[3]])
 

@@ -6,20 +6,20 @@ byte for byte (tile 64, overlap 0 on 128x128 and overlap 32 on 96x96, as
 pass-through, the file round trip, and the contract's faults raising
 where JAX's raise."""
 
-import jax.numpy as jnp
+import json
+
 import numpy as np
 import pytest
 import torch
 
-from onedc_tpu.models.onedc import OneDCRuntime as JaxOneDCRuntime
 from onedc_tpu.parallel import tiled as jtiled
 from onedc_tpu_torch.models.onedc import OneDCRuntime
 from onedc_tpu_torch.parallel import tiled as ptiled
+from torch_golden import runtime_reference
 from torch_port_common import (  # noqa: F401  (a fixture)
     IMAGE_TOL,
     one_torch_thread,
     port_model,
-    tiny_jax_model,
 )
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -27,10 +27,14 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 @pytest.fixture(scope="module")
 def runtimes():
-    jm, params = tiny_jax_model()
-    jrt = JaxOneDCRuntime(jm, params)
-    jrt.update(force=True)
-    return jrt, OneDCRuntime(port_model(), device="cpu")
+    """The JAX ``TiledCodec``'s outputs on the tests' images (stored by
+    ``torch_golden/runtime_reference.py``) and the port's runtime."""
+    return (runtime_reference.load("tiled"),
+            OneDCRuntime(port_model(), device="cpu"))
+
+
+def _text(arrays, key) -> str:
+    return arrays[key].tobytes().decode()
 
 
 def _image(h: int, w: int, seed: int = 3) -> np.ndarray:
@@ -66,18 +70,19 @@ def test_4k_plan_at_768():
 @pytest.mark.parametrize("size,overlap", [(128, 0), (96, 32)],
                          ids=["128-overlap0", "96-overlap32"])
 def test_containers_and_images_match_jax(runtimes, size, overlap, tmp_path):
-    jrt, prt = runtimes
+    gold, prt = runtimes
     image = _image(size, size)
-    jtc = jtiled.TiledCodec(jrt, tile=64, overlap=overlap)
     ptc = ptiled.TiledCodec(prt, tile=64, overlap=overlap)
-    want, want_info = jtc.encode(jnp.asarray(image))
+    # JAX ``TiledCodec(jrt, 64, overlap)``'s encode and decode, stored
+    want = runtime_reference.stream(gold, f"tiled{size}")
+    want_info = json.loads(_text(gold, f"info{size}"))
     fp = tmp_path / "big.bin"
     got, info = ptc.encode(image, fp=str(fp))
-    assert got == bytes(want)
+    assert got == want
     assert info == want_info and info["n_tiles"] == 4
     assert fp.read_bytes() == got
     out = ptc.decode(stream=got)
-    ref = np.asarray(jtc.decode(stream=bytes(want)))
+    ref = gold[f"decoded{size}"]
     assert out.shape == (1, size, size, 3) and out.dtype == torch.float32
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=IMAGE_TOL)
     # the file round trip decodes the same bits
@@ -112,15 +117,14 @@ def test_stitch_is_decode_batch_where_one_tile_covers(runtimes):
 def test_small_image_passes_through(runtimes):
     """Both sides at most the tile: the runtime's plain container, the
     JAX pass-through's bytes, decoded by the runtime."""
-    jrt, prt = runtimes
+    gold, prt = runtimes
     image = _image(64, 64)
     ptc = ptiled.TiledCodec(prt, tile=128, overlap=0)
     stream, info = ptc.encode(image)
     direct, direct_info = prt.encode(image)
     assert stream == direct and info == direct_info
     assert not stream.startswith(ptiled.MAGIC)
-    assert stream == bytes(jtiled.TiledCodec(jrt, tile=128).encode(
-        jnp.asarray(image))[0])
+    assert stream == runtime_reference.stream(gold, "passthrough64")
     assert torch.equal(ptc.decode(stream=stream), prt.decode(direct))
 
 
@@ -129,17 +133,19 @@ def test_overlap_mismatch(runtimes):
     another tile count raises where JAX asserts; one whose plan has the
     encoder's count decodes without a word, as JAX does, blending with
     its own weights (the mis-stitch the format allows)."""
-    jrt, prt = runtimes
+    gold, prt = runtimes
     stream, _ = ptiled.TiledCodec(prt, 64, 0).encode(_image(128, 128))
-    with pytest.raises(AssertionError):
-        jtiled.TiledCodec(jrt, 64, 32).decode(stream=stream)
+    # JAX's ``TiledCodec(jrt, 64, 32).decode`` of this container asserts
+    assert stream == runtime_reference.stream(gold, "tiled128")
+    assert _text(gold, "error128_overlap32") == "AssertionError"
     with pytest.raises(ValueError, match="overlap"):
         ptiled.TiledCodec(prt, 64, 32).decode(stream=stream)
 
     stream, _ = ptiled.TiledCodec(prt, 64, 32).encode(_image(96, 96))
     right = ptiled.TiledCodec(prt, 64, 32).decode(stream=stream)
     wrong = ptiled.TiledCodec(prt, 64, 0).decode(stream=stream)
-    ref = np.asarray(jtiled.TiledCodec(jrt, 64, 0).decode(stream=stream))
+    assert stream == runtime_reference.stream(gold, "tiled96")
+    ref = gold["decoded96_overlap0"]
     np.testing.assert_allclose(wrong.numpy(), ref, rtol=0, atol=IMAGE_TOL)
     assert not torch.equal(wrong, right)
 
@@ -147,14 +153,14 @@ def test_overlap_mismatch(runtimes):
 def test_one_side_small_image_raises_where_jax_raises(runtimes):
     """40x128 at tile 64: corners (0, 0) and (0, 64), tiles of 40x64. Both
     packages encode it (the same bytes); both decodes raise."""
-    jrt, prt = runtimes
+    gold, prt = runtimes
     image = _image(40, 128)
     assert ptiled.plan_tiles(40, 128, 64, 0) == [(0, 0), (0, 64)]
     stream, info = ptiled.TiledCodec(prt, 64, 0).encode(image)
-    want, _ = jtiled.TiledCodec(jrt, 64, 0).encode(jnp.asarray(image))
-    assert stream == bytes(want) and info["n_tiles"] == 2
-    with pytest.raises(ValueError):
-        jtiled.TiledCodec(jrt, 64, 0).decode(stream=stream)
+    # JAX ``TiledCodec(jrt, 64, 0)``'s container; its decode raises
+    assert stream == runtime_reference.stream(gold, "tiled40x128")
+    assert info["n_tiles"] == 2
+    assert _text(gold, "error40x128") == "ValueError"
     with pytest.raises(ValueError, match="40x64 tile"):
         ptiled.TiledCodec(prt, 64, 0).decode(stream=stream)
 

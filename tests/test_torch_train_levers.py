@@ -11,8 +11,8 @@ The step against JAX's ``make_train_step``:
 ``test_torch_train_levers_step.py``.
 """
 
+import json
 import logging
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -22,8 +22,6 @@ import pytest
 import torch
 
 from onedc_tpu.config import Config
-from onedc_tpu.data import datasets as jdata
-from onedc_tpu.train import losses as jlosses
 from onedc_tpu.train import step as jstep
 from onedc_tpu.train import trainer as jtrainer
 from onedc_tpu_torch.data.images import save_image
@@ -36,6 +34,7 @@ from onedc_tpu_torch.train import step as pstep
 from onedc_tpu_torch.train import trainer as ptrainer
 from onedc_tpu_torch.utils.convert import state_dict_from_jax
 from onedc_tpu_torch.utils.remat import rematerialized
+from torch_golden import runtime_reference
 from torch_port_common import (  # noqa: F401  (a fixture)
     CODEFORMER,
     TINY,
@@ -392,6 +391,12 @@ def test_codeformer_warm_start_matches_jax():
                                  dict(codeformer_ckpt=dropped), log)
 
 
+# the eval epoch's lambda schedule and Codeformer weights
+EVAL_SCHEDULE = dict(start_step=0, end_step=10, start_value=0.5,
+                     end_value=2.0)
+EVAL_WEIGHTS = dict(codeformer_loss_weight=0.5, codeformer_mse_weight=2.0)
+
+
 class _Writer:
     def __init__(self):
         self.images = []
@@ -446,21 +451,17 @@ def test_eval_epoch_adds_the_codeformer_terms(tmp_path, data):
     of JAX's, ``total_loss`` and ``codeformer_loss`` included, the same
     images logged. The port's trainer is a whole one, built from the
     config; JAX's gets its parts set by hand."""
-    sched = dict(start_step=0, end_step=10, start_value=0.5, end_value=2.0)
-    weights = dict(codeformer_loss_weight=0.5, codeformer_mse_weight=2.0)
-    jm, params = tiny_jax_model(codeformer=True)
-    jt = jtrainer.Trainer.__new__(jtrainer.Trainer)
-    jt.cfg, jt.model = Config.wrap(dict(weights)), jm
-    jt.loss = jlosses.RDLoss(lmbda=2.0, lmbda_schedule=sched)
-    jt.state = SimpleNamespace(params=jax.tree.map(jnp.asarray, params))
-    jt.eval_loader = jdata.DataLoader(
-        jdata.ImageFolderDataset(str(data / "eval")), 1)
-    jt.writer = _Writer()
-    want = jt.eval_one_epoch(3)
+    # the JAX trainer's eval epoch on the same folder and weights (its
+    # parts set by hand, the loss and weights below), stored
+    gold = runtime_reference.load("evals")
+    want = {k[len("levers/metrics/"):]: float(v) for k, v in gold.items()
+            if k.startswith("levers/metrics/")}
+    jax_images = [(t, tuple(shape), step) for t, shape, step in json.loads(
+        runtime_reference.text(gold, "levers/images"))]
 
     cfg = dict(model=dict(TINY, **CODEFORMER), allow_no_lpips=True,
                eval_data=str(data / "eval"), run_dir=str(tmp_path / "run"),
-               lmbda=2.0, lmbda_schedule=sched, **weights)
+               lmbda=2.0, lmbda_schedule=EVAL_SCHEDULE, **EVAL_WEIGHTS)
     pt = ptrainer.Trainer(cfg, device="cpu")
     pt.model.load_state_dict(port_model(codeformer=True).state_dict())
     pt.writer = _Writer()
@@ -473,7 +474,7 @@ def test_eval_epoch_adds_the_codeformer_terms(tmp_path, data):
             assert abs(got[k] - v) <= EVAL_PSNR_ABS, (k, got[k], v)
         else:
             assert abs(got[k] - v) <= EVAL_REL * abs(v), (k, got[k], v)
-    assert pt.writer.images == jt.writer.images == [
+    assert pt.writer.images == jax_images == [
         ("eval/recon", (128, 128, 3), 3), ("eval/gt", (128, 128, 3), 3)]
 
 

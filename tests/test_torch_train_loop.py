@@ -13,13 +13,12 @@ drives the JAX loop: the JAX ``Trainer.__init__`` would jit the whole
 model's init.
 """
 
+import json
 import logging
 import os
 import signal
 from types import SimpleNamespace
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,7 +28,6 @@ import twins
 from onedc_tpu.config import Config
 from onedc_tpu.data import datasets as jdata
 from onedc_tpu.train import ema as jema
-from onedc_tpu.train import losses as jlosses
 from onedc_tpu.train import trainer as jtrainer
 from onedc_tpu.utils import checkpoint as jckpt
 from onedc_tpu_torch.data import datasets as pdata
@@ -41,6 +39,7 @@ from onedc_tpu_torch.utils import checkpoint as pckpt
 from onedc_tpu_torch.utils.convert import state_dict_from_jax
 from onedc_tpu_torch.utils.logging import read_metrics
 from onedc_tpu_torch.utils.safetensors import load_safetensors
+from torch_golden import runtime_reference
 from torch_port_common import (  # noqa: F401  (a fixture)
     TINY,
     one_torch_thread,
@@ -261,14 +260,15 @@ def test_eval_one_epoch_matches_jax(tmp_path):
     EVAL_REL, the same images logged."""
     root = _folder(tmp_path / "eval", 3, 80, 140, seed=5)
     cfg = dict(eval_max_images=2)
-    jm, params = tiny_jax_model()
-    jt = jtrainer.Trainer.__new__(jtrainer.Trainer)
-    jt.cfg, jt.model = Config.wrap(cfg), jm
-    jt.loss = jlosses.RDLoss(lmbda=2.0, lmbda_schedule=LMBDA_SCHEDULE)
-    jt.state = SimpleNamespace(params=jax.tree.map(jnp.asarray, params))
-    jt.eval_loader = jdata.DataLoader(jdata.ImageFolderDataset(root), 1)
-    jt.writer = _Writer()
-    want = jt.eval_one_epoch(7)
+    # the JAX trainer's eval epoch on the same folder and weights (its
+    # parts set by hand: this config, the loss below), stored
+    gold = runtime_reference.load("evals")
+    want = {k[len("loop/metrics/"):]: float(v) for k, v in gold.items()
+            if k.startswith("loop/metrics/")}
+    jax_images = [(t, tuple(shape), step) for t, shape, step in json.loads(
+        runtime_reference.text(gold, "loop/images"))]
+    jax_dicts = [tuple(d) for d in json.loads(
+        runtime_reference.text(gold, "loop/dicts"))]
 
     pt = ptrainer.Trainer.__new__(ptrainer.Trainer)
     pt.cfg, pt.model, pt.device = cfg, port_model(), torch.device("cpu")
@@ -283,9 +283,9 @@ def test_eval_one_epoch_matches_jax(tmp_path):
             assert abs(got[k] - v) <= EVAL_PSNR_ABS, (k, got[k], v)
         else:
             assert abs(got[k] - v) <= EVAL_REL * abs(v), (k, got[k], v)
-    assert pt.writer.images == jt.writer.images == [
+    assert pt.writer.images == jax_images == [
         ("eval/recon", (64, 128, 3), 7), ("eval/gt", (64, 128, 3), 7)]
-    assert [d[:2] for d in pt.writer.dicts] == [("eval", 7)]
+    assert [d[:2] for d in pt.writer.dicts] == jax_dicts == [("eval", 7)]
     assert ptrainer.Trainer.eval_one_epoch(
         SimpleNamespace(eval_loader=None), 1) == {}
 

@@ -41,15 +41,18 @@ from onedc_tpu_torch.nn.vae import VaeDownBlock
 from onedc_tpu_torch.ops import conv3x3 as k2
 from onedc_tpu_torch.ops import flash_attention as k1
 from onedc_tpu_torch.utils.convert import state_dict_from_jax
-from torch_port_common import (
-    TINY,
+from torch_port_common import (  # noqa: F401  (a fixture)
     fill_params,
     nchw,
     nhwc,
+    one_torch_thread,
     port_model,
+    TINY,
     tiny_jax_model,
     to_np,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # relative L2 limits: ||port - jax|| <= tol * ||jax||, per tensor
 FWD_REL_L2 = 1e-4

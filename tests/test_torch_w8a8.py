@@ -38,13 +38,13 @@ import torch
 
 import onedc_tpu.nn.quant as jq
 from onedc_tpu.models.onedc import OneDC as JaxOneDC
-from onedc_tpu.models.onedc import OneDCRuntime as JaxOneDCRuntime
 from onedc_tpu.nn.blocks import UpsampleConv2x as JaxUpsampleConv2x
 from onedc_tpu.nn.vae import TinyVaeDecoder as JaxTinyVaeDecoder
 from onedc_tpu_torch.models.onedc import OneDC, OneDCRuntime
 from onedc_tpu_torch.nn import blocks, quant
 from onedc_tpu_torch.ops import w8a8
 from onedc_tpu_torch.utils.convert import state_dict_from_jax
+from torch_golden import runtime_reference
 from torch_port_common import (  # noqa: F401  (a fixture)
     TINY,
     fill_params,
@@ -417,24 +417,15 @@ def jax_w8a8():
     """The JAX package's w8a8 runtimes (f32, gate 0 while they trace):
     the streams its encode writes of ``_images()`` and its w8a8 decode of
     each; the TinyVAE runtime's decode of the first; the z-only decode of
-    the port's z indices of the first image (``port_w8a8`` fills them)."""
-    jm, params = tiny_jax_model()
-    out = {}
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jq, "_Q8_MIN_CH", 0)
-        rt = JaxOneDCRuntime(jm, params, quant="w8a8")
-        rt.update(force=True)
-        streams = [bytes(rt.encode(jnp.asarray(im))[0]) for im in _images()]
-        out["streams"] = streams
-        out["large"] = [np.asarray(rt.decode(stream=s)) for s in streams]
-        tiny = JaxOneDCRuntime(jm, {"params": _tiny_vae_params(
-            jm, params["params"] if "params" in params else params)},
-            quant="w8a8", vae="tiny")
-        tiny.update(force=True)
-        out["tiny"] = np.asarray(tiny.decode(stream=streams[0]))
-        out["z_rt"] = JaxOneDCRuntime(jm.clone(z_only=True), params,
-                                      quant="w8a8")
-    return out
+    the port's z indices of the first image; stored by
+    ``torch_golden/runtime_reference.py``."""
+    gold = runtime_reference.load("w8a8")
+    n = len(_images())
+    return {"streams": [runtime_reference.stream(gold, f"stream{i}")
+                        for i in range(n)],
+            "large": [gold[f"large{i}"] for i in range(n)],
+            "tiny": gold["tiny"], "z_indices": gold["z_indices"],
+            "z_only": gold["z_only"]}
 
 
 @pytest.fixture(scope="module")
@@ -488,8 +479,9 @@ def test_w8a8_decode_matches_jax(jax_w8a8, port_w8a8, which):
         ims = _images()
         z = exact_rt.write_plan(np.concatenate([ims[0], ims[2]]))[
             "z_indices"]
-        want = np.asarray(jax_w8a8["z_rt"]._decode_z_only(
-            jax_w8a8["z_rt"].params, jnp.asarray(z[:1].numpy())))
+        # JAX's decode of these z indices, stored
+        np.testing.assert_array_equal(z[:1].numpy(), jax_w8a8["z_indices"])
+        want = jax_w8a8["z_only"]
         with torch.no_grad():
             both = rt.quantized(rt.model.decode_device_z_only)(z)
             got = rt.quantized(rt.model.decode_device_z_only)(z[:1])

@@ -14,23 +14,23 @@ relative L2 on random weights), and the z-only rate-distortion forward
 
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from onedc_tpu.models.onedc import OneDCRuntime as JaxOneDCRuntime
 from onedc_tpu_torch.models.onedc import OneDCRuntime
-from torch_port_common import (
+from torch_golden import runtime_reference
+from torch_port_common import (  # noqa: F401  (a fixture)
     IMAGE_TOL,
     nchw,
     nhwc,
+    one_torch_thread,
     port_model,
     seeded_images,
-    tiny_jax_model,
     to_np,
 )
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 FWD_REL_L2 = 1e-4
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -46,10 +46,19 @@ def assert_rel_l2(got, want, what):
 
 @pytest.fixture(scope="module")
 def jax_z():
-    jm, params = tiny_jax_model()
-    rt = JaxOneDCRuntime(jm.clone(z_only=True), params)
-    rt.update(force=True)
-    return rt
+    """The JAX z-only runtime's outputs, stored by
+    ``torch_golden/runtime_reference.py``."""
+    return runtime_reference.load("z_only")
+
+
+def codec_program_inputs():
+    """(x, cond, z) of ``test_z_only_codec_programs_match_jax``: a 128x128
+    image, its 16x16 latent and a 2x2 z."""
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)
+    cond = rng.standard_normal((1, 16, 16, 4)).astype(np.float32)
+    z = rng.integers(0, 4 ** 7, (1, 2, 2)).astype(np.int32)
+    return x, cond, z
 
 
 @pytest.fixture(scope="module")
@@ -60,12 +69,14 @@ def port_z():
 @pytest.mark.parametrize("which", [0, 1], ids=["64x64", "50x39"])
 def test_z_only_container_and_image_match_jax(jax_z, port_z, which):
     image = seeded_images()[which]
-    want, want_bpp = jax_z.encode(jnp.asarray(image))
+    # JAX ``encode`` and ``decode`` of the image, stored
+    want = runtime_reference.stream(jax_z, f"stream{which}")
+    want_bpp = runtime_reference.bpp(jax_z, f"stream{which}")
     stream, bpp = port_z.encode(image)
-    assert stream == bytes(want)
+    assert stream == want
     assert bpp == want_bpp and bpp["bits_y"] == 0
     img = port_z.decode(stream)
-    ref = np.asarray(jax_z.decode(stream=stream))
+    ref = jax_z[f"decoded{which}"]
     assert img.shape == ref.shape == (1, *image.shape[1:])
     np.testing.assert_allclose(img.numpy(), ref, rtol=0, atol=IMAGE_TOL)
     # the codec-only decode reads the same z and runs the z-only programs
@@ -92,19 +103,11 @@ def test_z_only_codec_programs_match_jax(jax_z, port_z):
     decode programs are held in ``tests/test_torch_models.py``: at 1x1 the
     tiny model's GroupNorms normalise 2 channels of one pixel per group,
     and their f32 rounding is amplified (2.4e-4 per element measured)."""
-    crt = jax_z._codec_rt
-    codec = crt.codec
-    rng = np.random.default_rng(11)
-    x = rng.uniform(-1, 1, (1, 128, 128, 3)).astype(np.float32)
-    cond = rng.standard_normal((1, 16, 16, 4)).astype(np.float32)
-    z = rng.integers(0, 4 ** 7, (1, 2, 2)).astype(np.int32)
-
-    @jax.jit
-    def jax_fn(p, x, cond, z):
-        fwd = codec.apply(p, x, cond, training=False)
-        return fwd, codec.apply(p, z, method=codec.decompress_z_only)
-
-    fwd, (x_hat, y_sem) = jax_fn(crt.params, x, cond, z)
+    # JAX's codec forward and ``decompress_z_only`` on these inputs, stored
+    x, cond, z = codec_program_inputs()
+    fwd = {k[len("fwd/"):]: v for k, v in jax_z.items()
+           if k.startswith("fwd/")}
+    x_hat, y_sem = jax_z["x_hat"], jax_z["y_sem"]
     pc = port_z.model.codec
     with torch.no_grad():
         got_x_hat, got_y_sem = pc.decompress_z_only(torch.from_numpy(z))

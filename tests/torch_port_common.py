@@ -1,10 +1,13 @@
 """Shared fixtures of the port's CPU tests (tests/test_torch_*.py).
 
 One tiny OneDC (``__graft_entry__._tiny_cfg``) per test process: the JAX
-parameter shapes come from ``jax.eval_shape`` of the model's init (a jitted
-init of the whole model compiles the training forward and takes minutes
-on a CPU), the values from a seeded numpy generator. The same arrays go to
-the JAX package and, through ``state_dict_from_jax``, to the port.
+parameter shapes are ``jax.eval_shape`` of the model's init, stored in
+``torch_golden/tiny_shapes.json`` (a jitted init of the whole model
+compiles the training forward and takes minutes on a CPU; tracing it for
+the shapes took 10-20 s per process; ``test_torch_golden_shapes.py``
+traces it again), the values from a seeded numpy generator. The same
+arrays go to the JAX package and, through ``state_dict_from_jax``, to the
+port.
 """
 
 from __future__ import annotations
@@ -88,14 +91,28 @@ def tiny_jax_model(seed: int = SEED, codeformer: bool = False):
     return _tiny_jax_model(seed, codeformer)
 
 
+def stored_shapes(codeformer: bool = False):
+    """The tiny model's parameter shapes from ``torch_golden/
+    tiny_shapes.json``, as the nested dict of ``jax.ShapeDtypeStruct``
+    that ``jax.eval_shape`` of its init gives."""
+    from torch_golden import tiny_shapes
+
+    tree: dict = {}
+    for path, shape in tiny_shapes.load()[
+            "codeformer" if codeformer else "plain"].items():
+        *mods, leaf = path.split("/")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = jax.ShapeDtypeStruct(tuple(shape), jnp.float32)
+    return tree
+
+
 @functools.lru_cache(maxsize=None)
 def _tiny_jax_model(seed: int, codeformer: bool):
     model = JaxOneDC(**TINY, **(CODEFORMER if codeformer else {}))
-    size = 128 if codeformer else 64
-    shapes = jax.eval_shape(
-        lambda x: model.init({"params": jax.random.PRNGKey(0)}, x),
-        jnp.zeros((1, size, size, 3), jnp.float32))
-    return model, fill_params(shapes, np.random.default_rng(seed))
+    return model, fill_params(stored_shapes(codeformer),
+                              np.random.default_rng(seed))
 
 
 def port_model(seed: int = SEED, codeformer: bool = False, **overrides):
@@ -169,3 +186,34 @@ def nchw(a: np.ndarray) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return to_np(t.permute(0, 2, 3, 1))
+
+
+def seeded_state(module, seed: int):
+    """Seeded f32 numpy values for every entry of a port module's state
+    dict, drawn in sorted key order and in the torch layout, by
+    ``fill_params``'s rules: weights of rank >= 2 ~ GAIN * N(0, 1/fan_in),
+    1-d weights (norms) ~ 1 + N(0, 0.1^2), biases ~ N(0, 0.1^2). The
+    module may live on the meta device (shapes only)."""
+    rng = np.random.default_rng(seed)
+    shapes = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    out = {}
+    for key in sorted(shapes):
+        shape = shapes[key]
+        noise = rng.standard_normal(shape)
+        if key.endswith(".weight") and len(shape) >= 2:
+            arr = GAIN * noise / np.sqrt(np.prod(shape[1:]))
+        elif key.endswith(".weight"):
+            arr = 1 + 0.1 * noise
+        else:
+            arr = 0.1 * noise
+        out[key] = arr.astype(np.float32)
+    return out
+
+
+def load_seeded(module, seed: int):
+    """``module`` with ``seeded_state(module, seed)`` loaded strictly (in
+    place of meta tensors too); returns it."""
+    state = {k: torch.from_numpy(v) for k, v in
+             seeded_state(module, seed).items()}
+    module.load_state_dict(state, strict=True, assign=True)
+    return module
