@@ -37,6 +37,19 @@
 6. z-only path: ``OneDC(z_only=True)`` with the lambda model's weights in
    bf16 encodes (no y stream) and decodes the 768x768 and 512x768 images,
    with the decode's launch counts, and ``decode_batch`` of both.
+6b. Spatial phase (``spatial_path``), on the same runtime: a 768x768
+   stream written by its programs, decoded whole and by two processes in a
+   gloo group on the one card (``mp.spawn``; NCCL refuses two ranks on one
+   device), each a band of rows over the mesh's ``tensor`` axis
+   (``parallel/spatial.py``: halo rows for the convs and K2, GroupNorm's
+   sums all-reduced, K1 on a band's queries against every key), the
+   all-gathered image within the BATCH_* limits of the whole decode, each
+   band's K1 / K2 launches as the "spatial768" tables; then the same two
+   processes as a ``data`` axis: ``encode_batch`` and ``decode_batch`` of
+   three 768x768 images with ``mesh=``, every stream decoding to its
+   writer's plan, launches per rank as ``data_mesh_launches``. The
+   bundles' exports (BUNDLE_EXPORTS) start before this phase, each in a
+   process of its own, and run beside it and the serving phase.
 7. Serving phase, on the same runtime: ``pick_stream_scale`` on a
    768x768 probe calibrates the weights (``utils/calibrate.py``) into the
    released 0.02-0.15 bpp band; the Kodak-sized set (SERVING_SIZES) and
@@ -45,12 +58,13 @@
    is its writer's plan's bit for bit, every update takes int8 symbols,
    launches as ``batch_launches``, images within the BATCH_* limits of
    single decodes; decodes/s at the defaults, at depth 1 and per stream,
-   and peak memory. Then a BUNDLE_BUCKET serving bundle
-   (``utils/aot.py``, export seconds and bytes) serves the 768x768
-   streams in a fresh process (``--serve-bundle``): ``ServingDecoder``
-   and ``ServingEncoder`` with no model module loaded, their launches,
-   rows and containers checked against the writers' plans, and the
-   bundle's decodes/s.
+   and peak memory. The BUNDLE_BUCKET serving bundle (``utils/aot.py``,
+   the BUNDLE_PROGRAMS its process runs, export seconds and bytes)
+   serves the 768x768 streams in a fresh process (``--serve-bundle``),
+   which loads it while the pipelined checks run and decodes after them:
+   ``ServingDecoder`` and ``ServingEncoder`` with no model module loaded,
+   their launches, rows and containers checked against the writers'
+   plans, and the bundle's decodes/s.
 8. w8a8 phase (``w8a8_path``): ``OneDCRuntime(quant="w8a8")`` on the
    serving phase's calibrated model at the default gate 512 decodes the
    SERVE_SQUARE 768x768 streams pipelined and two of them alone: the
@@ -63,8 +77,9 @@
    against its B=1 output bit for bit; the costs (per op and family w8a8
    against bf16, the gate the per-op sums favour, one decode's wall and
    device busy, pipelined decodes/s; per op in build/w8a8_costs.json);
-   a BUNDLE_BUCKET w8a8 bundle served by a fresh process, bit-identical
-   to the runtime's pipelined images.
+   a BUNDLE_BUCKET w8a8 bundle (its x0 and VAE exported, the serving
+   bundle's prior programs) served by a fresh process, which loads it
+   while the checks run, bit-identical to the runtime's pipelined images.
 9. Tiled phase (``tiled_path``), on the same runtime: a seeded 3840x2160
    image through ``TiledCodec(rt, 768, 64)`` (``parallel/tiled.py``): the
    ODTC header and 18 tiles, every tile stream decodes to its writer's
@@ -84,7 +99,7 @@
    ``cli_path``).
 12. Quality path (``quality_path``): ``eval.rd_sweep.main`` on
    ``configs/rd_sweep.yaml`` with two points on the same release, the
-   lambda model and the z-only exlow one, over a Kodak-sized set of PNGs,
+   lambda model and the z-only exlow one, over 12 Kodak-sized PNGs,
    with seeded random LPIPS, DISTS and InceptionV3 files written by the
    port's converters: ``rd_curve.csv`` sorted by bpp with every metric
    finite, the sweep's launches, and on two source/recon pairs the card's
@@ -115,15 +130,18 @@
    bytes, save and restore seconds, s/step.
 15. Stage-I yaml phase (``stage1_yaml_path``): ``train.trainer.main`` on
    configs/train_stage1.yaml as shipped (Adafactor, the Codeformer against
-   the frozen VQGAN, frozen [vae, vqgan], batch 8, remat) with only
-   STAGE1_OVERRIDES (no FSDP, resolutions [512, 1024]), a seeded random
-   LPIPS file and seeded 1024x1024 PNGs: STAGE1_STEPS steps at 512x512
+   the frozen VQGAN, frozen [vae, vqgan], batch 8, remat, FSDP2 over a
+   world-1 NCCL group) with only STAGE1_OVERRIDES (resolutions [512,
+   1024]), a seeded random LPIPS file, seeded 1024x1024 PNGs and a
+   checkpoint at STAGE1_SAVE: STAGE1_STEPS steps at 512x512
    batch 8 and 1024x1024 batch 2 with their s/step, peak memory and
    launches (``stage1_per_step``: K1 and the VAE decoder's K2 launch again
    in the backward), the first step's Codeformer CE against ln 1024, the
    VAE and VQGAN bit-identical; a 512x512 batch-8 step without remat for
    its peak; remat, grad_accum and Adafactor held on the card
-   (``stage1_checks``).
+   (``stage1_checks``); then ``--resume`` in a fresh trainer, whose run of
+   the last step equals the first run's state bit for bit
+   (``stage1_resume``: checkpoint bytes, save and restore seconds).
 16. Stage-II phase (``stage2_path``): ``train.trainer_stage2.main`` on
    configs/train_stage2.yaml as shipped (the OneDC generator, the real and
    fake SD1.5 UNets, the GAN head and the CLIP text encoder at full width;
@@ -142,7 +160,8 @@
    K2 and K3 at its shapes (the "stage2" buckets), untimed.
 17. Prints ``{"kernels": [...]}``: K1 bf16 and f32, K1-bwd, K2 bf16 and
    f32, K3, with their launches by path (bf16: decode, encode,
-   decode_z_only, serve, bundle, decode_w8a8, cli, quality, tiled; f32:
+   decode_z_only, serve, bundle, decode_w8a8, cli, quality, tiled, spatial,
+   data_mesh; f32:
    train, train_loop, stage1_yaml, stage2), the card line and, last, the
    device line.
 
@@ -154,8 +173,10 @@ Any failed check raises, and the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import json
+import os
 import shutil
 import struct
 import subprocess
@@ -167,6 +188,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 # Limits of the kernel phase, against the plain version's output ref on
 # the same inputs, with no absolute floor:
@@ -224,11 +246,17 @@ H100_EXP_PER_S = 132 * 16 * 1.83e9
 # 500x700 encode (padded to 512x704): the VAE mid-block's single 512-wide
 # head over its whole 64x88 grid, which is not a multiple of its 16-pixel
 # window (the ragged decode launches it once more, in the VAE decoder)
+# "spatial768" holds one band's launches of the spatial phase's 768x768
+# decode over SPATIAL_BANDS bands: K1 as (B, N queries, M keys, H, D), a
+# band's queries against every band's keys; K2 on a band of 48 latent rows
+# (and its upsampled levels) plus one row of its neighbour
 K1_SHAPES = {"768x768": [((1, 9216, 8, 40), 5), ((1, 2304, 8, 80), 5)],
              "512x768": [((1, 6144, 8, 40), 5)],
              "batch2": [((2, 2304, 8, 80), 5)],
              "encode768": [((1, 2304, 64, 8), 2)],
-             "encode512x704": [((1, 5632, 1, 512), 1)]}
+             "encode512x704": [((1, 5632, 1, 512), 1)],
+             "spatial768": [((1, 4608, 9216, 8, 40), 5),
+                            ((1, 1152, 2304, 8, 80), 5)]}
 K2_SHAPES = {"768x768": [((1, 96, 96, 512, 512), 10),
                          ((1, 192, 192, 512, 512), 6),
                          ((1, 384, 384, 512, 256), 1),
@@ -247,11 +275,29 @@ K2_SHAPES = {"768x768": [((1, 96, 96, 512, 512), 10),
                            ((1, 384, 384, 256, 256), 3),
                            ((1, 192, 192, 256, 512), 1),
                            ((1, 192, 192, 512, 512), 3),
-                           ((1, 96, 96, 512, 512), 8)]}
+                           ((1, 96, 96, 512, 512), 8)],
+             "spatial768": [((1, 49, 96, 512, 512), 10),
+                            ((1, 97, 192, 512, 512), 6),
+                            ((1, 193, 384, 512, 256), 1),
+                            ((1, 193, 384, 256, 256), 5),
+                            ((1, 385, 768, 256, 128), 1),
+                            ((1, 385, 768, 128, 128), 5)]}
 # launches per decode; a 500x700 stream (512x704 padded) launches K1 at /8
 # (5632 tokens) and in the VAE decoder's mid-block
 K1_PER_CALL = {"768x768": 10, "512x768": 5, "768x512": 5, "512x704": 6}
 K2_PER_CALL = {"768x768": 28, "512x768": 28, "768x512": 28, "512x704": 28}
+# the spatial phase (``spatial_path``): one SPATIAL_SIZE stream decoded by
+# SPATIAL_BANDS processes, each a band of rows, in a gloo group on the one
+# card (NCCL refuses two ranks on one device; gloo carries the CUDA
+# tensors of all_reduce and all_gather, checked on an H100 with torch
+# 2.11), against the single decode of the same stream within the BATCH_*
+# limits (the same reorder of sums as a batch row's); then the batch codecs
+# over a data axis of the same processes: DATA_MESH_IMAGES images through
+# ``encode_batch`` (one padding row) and ``decode_batch``, each stream
+# decoding to its writer's plan
+SPATIAL_BANDS = 2
+SPATIAL_SIZE = (768, 768)
+DATA_MESH_IMAGES = 3
 # launches (K1, K2) per encode of one image (or one device chunk of
 # encode_many), by padded size: the encoder UNet's attention reaches K1
 # only from 2048 tokens at /16 (2304 at 768x768, 1536 at 512x768 and
@@ -371,16 +417,19 @@ TRAIN_OVERRIDES = {"optimizer": "adamw", "fsdp": False,
                    "batch_scales": [1.0, 0.5], "warmup_steps": 2,
                    "gradient_checkpointing": False}
 # the stage-I yaml phase: configs/train_stage1.yaml as shipped (Adafactor,
-# the Codeformer, frozen [vae, vqgan], batch 8, remat) with only these
-# overrides and its own LPIPS file, data folders and run directory: no
-# FSDP (one card), and the two of the yaml's resolutions at which the JAX
-# Codeformer's window divides its grid (ROADMAP.md, Queue 3). Steps 0-8:
-# MultiResolutionCrop.pick gives 1024 at 0-4 and 6, 512 at 5, 7 and 8.
-# Launches per forward pass as the "stage" buckets; per step with remat
-# ``stage1_per_step``.
-STAGE1_OVERRIDES = {"fsdp": False, "resolutions": [512, 1024],
-                    "batch_scales": [1.0, 0.25]}
+# the Codeformer, frozen [vae, vqgan], batch 8, remat, FSDP: a mesh of one
+# process in a world-1 NCCL group) with only these overrides and its own
+# LPIPS file, data folders, run directory and step counts: the two of the
+# yaml's resolutions at which the JAX Codeformer's window divides its grid
+# (ROADMAP.md, Queue 3). Steps 0-8: MultiResolutionCrop.pick gives 1024 at
+# 0-4 and 6, 512 at 5, 7 and 8. Launches per forward pass as the "stage"
+# buckets; per step with remat ``stage1_per_step``. A checkpoint at
+# STAGE1_SAVE, resumed after the phase's checks in a fresh trainer that
+# runs the last step again: its state equals the first trainer's bit for
+# bit.
+STAGE1_OVERRIDES = {"resolutions": [512, 1024], "batch_scales": [1.0, 0.25]}
 STAGE1_STEPS = 9
+STAGE1_SAVE = 8
 STAGE1_PER_FORWARD = {512: (5, 5, 48, 28), 1024: (12, 12, 48, 28)}
 STAGE1_TRAIN_IMAGES = 8
 # the stage-I phase's checks on one batch of two 512x512 images, relative
@@ -445,8 +494,29 @@ VAE_CHUNK = 8
 # the images ServingEncoder encodes (the first of the 768x768 ones)
 SERVE_SQUARE = 16
 SERVE_SIZES = SERVING_SIZES + [(768, 768)] * SERVE_SQUARE
+# the quality phase's images: the first half of the Kodak-sized set (nine
+# at 512x768, three at 768x512), which keeps the script inside its time
+# limit beside the spatial phase
+QUALITY_SIZES = SERVING_SIZES[:12]
 BUNDLE_BUCKET = (768, 768, 8)
 BUNDLE_ENCODE = 8
+# the programs each bundle exports: those its process runs (the calibrated
+# streams take int8 symbols on every update, which the serving phase
+# checks, so the int16 update programs and the fused decode, which no
+# serving process runs, are left out); the w8a8 bundle exports its x0 and
+# VAE and takes the serving bundle's prior programs, which are traced
+# outside the quant mode (``utils/aot.py``)
+BUNDLE_PRIOR = ("begin",) + tuple(f"update{s}_i8" for s in range(4))
+BUNDLE_PROGRAMS = BUNDLE_PRIOR + ("x0", "vae", "encode")
+W8A8_BUNDLE_PROGRAMS = ("x0", "vae")
+# the exports, each in a process of its own (``--export-bundle``) on a
+# model built as the decode phase builds it, started before the spatial
+# phase and run beside it and the serving phase: (name, quant mode,
+# programs). A program takes the weights as an argument, so one exported
+# from another model of the same layout is the same program.
+BUNDLE_EXPORTS = (("bf16", None, BUNDLE_PRIOR + ("x0", "vae")),
+                  ("bf16_encode", None, ("encode",)),
+                  ("w8a8", "w8a8", W8A8_BUNDLE_PROGRAMS))
 # modules a bundle process must not load: the model code
 MODEL_MODULES = ("onedc_tpu_torch.models", "onedc_tpu_torch.nn.unet_sd",
                  "onedc_tpu_torch.nn.vae", "onedc_tpu_torch.eval")
@@ -539,19 +609,21 @@ def bound_ms(flops: float, nbytes: float, exps: float = 0.0):
     return times[by], by
 
 
-def attention_bound(b, n, h, d, itemsize, lse=False, backward=False):
-    """bound_ms of K1 (or K1-bwd) on (b, n, h, d) q, k, v with n keys: the
-    forward does 4*b*h*n*n*d FLOPs and b*h*n*n exponentials and moves q, k,
-    v, o (and the row LSE); the backward recomputes P once (the same
+def attention_bound(b, n, h, d, itemsize, lse=False, backward=False,
+                    m=None):
+    """bound_ms of K1 (or K1-bwd) on (b, n, h, d) q and m keys (None: n):
+    the forward does 4*b*h*n*m*d FLOPs and b*h*n*m exponentials and moves
+    q, k, v, o (and the row LSE); the backward recomputes P once (the same
     exponentials), does 10*b*h*n*n*d FLOPs and moves q, k, v, o, do, dq,
     dk, dv and the LSE and di rows."""
-    exps = float(b) * h * n * n
+    m = n if m is None else m
+    exps = float(b) * h * n * m
     if backward:
         return bound_ms(10.0 * b * h * n * n * d,
                         7 * b * n * h * d * itemsize + 2 * b * h * n * 4, exps)
-    return bound_ms(4.0 * b * h * n * n * d,
-                    4 * b * n * h * d * itemsize + (b * h * n * 4 if lse else 0),
-                    exps)
+    return bound_ms(4.0 * b * h * n * m * d,
+                    2 * b * (n + m) * h * d * itemsize
+                    + (b * h * n * 4 if lse else 0), exps)
 
 
 # ---------------------------------------------------------------------------
@@ -653,14 +725,18 @@ def check_k1(gen: torch.Generator):
 
     rows = []
     for bucket, shapes in K1_SHAPES.items():
-        for (b, n, h, d), count in shapes:
-            q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda",
-                                   dtype=torch.bfloat16) for _ in range(3))
+        for shape, count in shapes:
+            # (b, n, h, d), or (b, n, m, h, d): n queries against m keys
+            b, n, m, h, d = shape if len(shape) == 5 else (
+                shape[0], shape[1], *shape[1:])
+            q, k, v = (torch.randn((b, r, h, d), generator=gen,
+                                   device="cuda", dtype=torch.bfloat16)
+                       for r in (n, m, m))
             scale = d ** -0.5
             out = k1.flash_attention(q, k, v, scale)
             ref = k1.attention_plain(q, k, v, scale)
             mutant = k1.attention_plain(q, k[:, 64:], v[:, 64:], scale)
-            errs = compare(f"K1 {bucket} {(b, n, h, d)}", out, ref, mutant)
+            errs = compare(f"K1 {bucket} {shape}", out, ref, mutant)
             del ref, mutant
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -668,11 +744,11 @@ def check_k1(gen: torch.Generator):
             plain = cuda_ms(lambda: k1.attention_plain(q, k, v, scale),
                             iters=3)
             lib = cuda_ms(lambda: sdpa(qt, kt, vt, scale=scale))
-            bnd, by = attention_bound(b, n, h, d, 2)
-            rows.append(dict(bucket=bucket, shape=[b, n, h, d], count=count,
+            bnd, by = attention_bound(b, n, h, d, 2, m=m)
+            rows.append(dict(bucket=bucket, shape=list(shape), count=count,
                              **errs, ms=ms, plain_ms=plain, library_ms=lib,
                              bound_ms=bnd, bound_by=by))
-            print(f"K1 {bucket} {(b, n, h, d)} x{count}: kernel {ms:.4f} ms "
+            print(f"K1 {bucket} {shape} x{count}: kernel {ms:.4f} ms "
                   f"plain {plain:.4f} sdpa {lib:.4f} bound {bnd:.4f} ({by})",
                   flush=True)
     return rows
@@ -1552,24 +1628,21 @@ def rates(fn, n: int, passes: int = 2):
     return [n / (_wall_ms(fn) / 1e3) for _ in range(passes)]
 
 
-def serve_path(rt, seed: int, card: str):
+def serve_path(rt, seed: int, card: str, exports):
     """The serving phase on the decode phase's bf16 runtime: stream-rate
     calibration, the pipelined ``decode_batch`` of the Kodak-sized set
     plus SERVE_SQUARE 768x768 images (rows against the writers' plans,
     images against single decodes, launches, int8 symbols, decodes/s at
-    the defaults, at depth 1 and per stream), then a BUNDLE_BUCKET serving
-    bundle decoded and encoded with in a fresh process
-    (``serve_bundle``). Returns the K1 and K2 launches of the pipelined
-    decode ("serve") and of the bundle process ("bundle"), and the 768x768
-    streams with their writers' y_hat and their pipelined images (for
-    ``w8a8_path``)."""
-    import os
-
-    from onedc_tpu_torch.ops import conv3x3 as k2
-    from onedc_tpu_torch.ops import flash_attention as k1
+    the defaults, at depth 1 and per stream, ``serve_pipelined``), and a
+    BUNDLE_BUCKET serving bundle (``exports``, ``export_processes``)
+    decoded and encoded with in a fresh process (``serve_bundle``), which
+    loads the bundle while the pipelined checks run. Returns the K1 and
+    K2 launches of the pipelined decode ("serve") and of the bundle
+    process ("bundle"), and the 768x768 streams with their writers' y_hat
+    and their pipelined images (for ``w8a8_path``, with the bundle's prior
+    programs)."""
     from onedc_tpu_torch.utils import aot
 
-    counts = (k1, k2)
     images = serve_images(seed)
     base = {k: v.clone() for k, v in rt.model.state_dict().items()}
     t0 = time.perf_counter()
@@ -1598,85 +1671,35 @@ def serve_path(rt, seed: int, card: str):
           f"{SERVE_SQUARE} at 768x768), {min(bpps):.4f}-{max(bpps):.4f} bpp",
           flush=True)
 
-    # the counted run: every row against its writer's plan, the symbols'
-    # dtype of every update, the launches of the tables
-    y_hats, dtypes = [], []
-    programs = rt.decode_programs
-    rt.decode_programs = lambda: recording(programs(), y_hats, dtypes)
-    torch.cuda.reset_peak_memory_stats()
-    k1.launches = 0
-    k2.launches = 0
-    decoded, got = counted(counts, lambda: rt.decode_batch(streams))
-    launches = {"K1": k1.launches, "K2": k2.launches}
-    del rt.decode_programs
-    want = batch_launches(SERVE_SIZES)
-    if got != want:
-        raise AssertionError(f"pipelined decode_batch launched K1/K2 {got}, "
-                             f"expected {want}")
-    match_rows(y_hats, plans, "pipelined decode_batch")
-    narrowed = sum(d == torch.int8 for d in dtypes)
-    if narrowed != len(dtypes):
-        raise AssertionError(f"int8 symbols on {narrowed} of {len(dtypes)} "
-                             f"updates of the calibrated streams")
-    singles = [rt.decode(s) for s in streams]
-    same = check_images(decoded, singles, "pipelined decode_batch")
-    print(f"serve: pipelined decode_batch: every row's y_hat is its writer's "
-          f"plan's; images within the batch limits of single decodes "
-          f"({same} of {len(singles)} bit-identical); K1/K2 launches {got}; "
-          f"int8 symbols on all {len(dtypes)} updates", flush=True)
-
-    def decode_all():
-        rt.decode_batch(streams)
-
-    def decode_each():
-        for s in streams:
-            rt.decode(s)
-
-    pipelined = rates(decode_all, len(streams))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    os.environ["ONEDC_PIPELINE_DEPTH"] = "1"
-    try:
-        depth1 = rates(decode_all, len(streams))
-    finally:
-        del os.environ["ONEDC_PIPELINE_DEPTH"]
-    each = rates(decode_each, len(streams))
-    print(f"serve decodes/s on {card} ({len(streams)} streams, after the "
-          f"counted pass): pipelined (defaults) {json.dumps(pipelined)}, "
-          f"depth 1 {json.dumps(depth1)}, per-stream decode "
-          f"{json.dumps(each)}; peak device memory {peak:.2f} GiB",
-          flush=True)
-
-    # the serving bundle, exported here and served by a fresh process
+    # the serving bundle (``exports``: BUNDLE_EXPORTS' processes); a fresh
+    # process loads it while this one runs the pipelined decode's checks
+    # and rates, then serves it
     h, w, b = BUNDLE_BUCKET
+    sel = [i for i, size in enumerate(SERVE_SIZES) if size == (h, w)]
     tmp = Path(tempfile.mkdtemp(prefix="onedc_bundle_"))
     try:
-        t0 = time.perf_counter()
-        arts = aot.export_serving_bundle(rt, h, w, batch=b)
-        export_s = time.perf_counter() - t0
+        arts = exported(exports, ("bf16", "bf16_encode"))
         aot.save_bundle(arts, tmp)
         aot.save_weights(rt, tmp / "weights.safetensors")
         art_bytes = sum(len(v) for k, v in arts.items() if k != "meta")
         weight_bytes = (tmp / "weights.safetensors").stat().st_size
-        print(f"bundle {h}x{w}x{b}: exported in {export_s:.1f} s on {card} "
-              f"(per program {json.dumps(arts['meta']['export_seconds'])}); "
+        seconds = arts["meta"]["export_seconds"]
+        print(f"bundle {h}x{w}x{b}: exported in {sum(seconds.values()):.1f} "
+              f"s on {card} by two processes beside the spatial and serving "
+              f"phases (per program {json.dumps(seconds)}); "
               f"{len(arts) - 1} artifacts, {art_bytes} bytes, against "
               f"{weight_bytes} bytes of weights", flush=True)
+        prior = {k: arts[k] for k in BUNDLE_PRIOR}
         del arts
-        sel = [i for i, size in enumerate(SERVE_SIZES) if size == (h, w)]
         (tmp / "streams").mkdir()
         for j, i in enumerate(sel):
             (tmp / "streams" / f"{j:02d}.bin").write_bytes(streams[i])
         np.save(tmp / "encode.npy",
                 np.concatenate([images[i] for i in sel[:BUNDLE_ENCODE]]))
-        torch.cuda.empty_cache()
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--serve-bundle",
-             str(tmp)], capture_output=True, text=True, timeout=900)
-        print(proc.stdout, end="", flush=True)
-        if proc.returncode != 0:
-            raise AssertionError(f"the bundle process failed:\n"
-                                 f"{proc.stderr[-4000:]}")
-        res = torch.load(tmp / "result.pt", weights_only=False)
+        with bundle_process(tmp) as proc:
+            launches, decoded = serve_pipelined(rt, streams, plans, card)
+            torch.cuda.empty_cache()
+            res = finish_bundle(proc, tmp, "bundle")
         if res["model_modules"]:
             raise AssertionError(f"the bundle process loaded model code: "
                                  f"{res['model_modules']}")
@@ -1721,8 +1744,68 @@ def serve_path(rt, seed: int, card: str):
         shutil.rmtree(tmp)
     square = {"streams": [streams[i] for i in sel],
               "plans": [plans[i] for i in sel],
-              "images": [decoded[i] for i in sel]}
+              "images": [decoded[i] for i in sel], "prior": prior}
     return launches, bundle, square
+
+
+def serve_pipelined(rt, streams, plans, card: str):
+    """The serving phase's pipelined ``decode_batch`` of the calibrated
+    streams: the counted run (every row against its writer's plan, int8
+    symbols on every update, launches as ``batch_launches``, images within
+    the BATCH_* limits of single decodes), then decodes/s at the defaults,
+    at depth 1 and per stream. Returns the launches and the images."""
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+
+    counts = (k1, k2)
+    # the counted run: every row against its writer's plan, the symbols'
+    # dtype of every update, the launches of the tables
+    y_hats, dtypes = [], []
+    programs = rt.decode_programs
+    rt.decode_programs = lambda: recording(programs(), y_hats, dtypes)
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = 0
+    k2.launches = 0
+    decoded, got = counted(counts, lambda: rt.decode_batch(streams))
+    launches = {"K1": k1.launches, "K2": k2.launches}
+    del rt.decode_programs
+    want = batch_launches(SERVE_SIZES)
+    if got != want:
+        raise AssertionError(f"pipelined decode_batch launched K1/K2 {got}, "
+                             f"expected {want}")
+    match_rows(y_hats, plans, "pipelined decode_batch")
+    narrowed = sum(d == torch.int8 for d in dtypes)
+    if narrowed != len(dtypes):
+        raise AssertionError(f"int8 symbols on {narrowed} of {len(dtypes)} "
+                             f"updates of the calibrated streams")
+    singles = [rt.decode(s) for s in streams]
+    same = check_images(decoded, singles, "pipelined decode_batch")
+    print(f"serve: pipelined decode_batch: every row's y_hat is its writer's "
+          f"plan's; images within the batch limits of single decodes "
+          f"({same} of {len(singles)} bit-identical); K1/K2 launches {got}; "
+          f"int8 symbols on all {len(dtypes)} updates", flush=True)
+
+    def decode_all():
+        rt.decode_batch(streams)
+
+    def decode_each():
+        for s in streams:
+            rt.decode(s)
+
+    pipelined = rates(decode_all, len(streams))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    os.environ["ONEDC_PIPELINE_DEPTH"] = "1"
+    try:
+        depth1 = rates(decode_all, len(streams), passes=1)
+    finally:
+        del os.environ["ONEDC_PIPELINE_DEPTH"]
+    each = rates(decode_each, len(streams), passes=1)
+    print(f"serve decodes/s on {card} ({len(streams)} streams, after the "
+          f"counted pass): pipelined (defaults) {json.dumps(pipelined)}, "
+          f"depth 1 {json.dumps(depth1)}, per-stream decode "
+          f"{json.dumps(each)}; peak device memory {peak:.2f} GiB",
+          flush=True)
+    return launches, decoded
 
 
 def int8_products(ops_by_family: dict) -> int:
@@ -1784,8 +1867,6 @@ def w8a8_op_costs(rtq, ops, seed: int, gate: int):
     launches of one pass (``torch.profiler``). Returns the rows, the
     groups, the families' sums at ``gate``, and the decode's op sums, wall
     and device, at each of W8A8_GATES (ops below the gate exact)."""
-    import os
-
     from tools.profile_port_decode import profiled
 
     modules = dict(rtq.model.named_modules())
@@ -1841,7 +1922,7 @@ def w8a8_op_costs(rtq, ops, seed: int, gate: int):
     return rows, groups, families, gates
 
 
-def w8a8_path(rt, square, seed: int, card: str):
+def w8a8_path(rt, square, seed: int, card: str, exports):
     """The w8a8 phase: ``OneDCRuntime(quant="w8a8")`` on the serving
     phase's calibrated bf16 model, at the default gate 512, against the
     exact runtime ``rt`` on the same SERVE_SQUARE 768x768 streams
@@ -1859,19 +1940,71 @@ def w8a8_path(rt, square, seed: int, card: str):
     family w8a8 against bf16 (ms, launches), the gate the per-op sums
     favour, one decode's wall and device busy, pipelined decodes/s.
     Returns the K1 and K2 launches of the pipelined decode."""
-    import os
+    from onedc_tpu_torch.models.onedc import OneDCRuntime
+    from onedc_tpu_torch.utils import aot
+
+    rtq = OneDCRuntime(rt.model, dtype=torch.bfloat16, device=rt.device,
+                       quant="w8a8")
+    streams = square["streams"]
+    n = len(streams)
+
+    # (e) a w8a8 bundle: its quantized x0 and VAE (``exports``), its prior
+    # programs the serving phase's bundle's (traced outside the quant
+    # mode, ``utils/aot.py``); a fresh process loads it while (a)-(d) and
+    # the costs run, then serves it
+    h, w, b = BUNDLE_BUCKET
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_w8a8_bundle_"))
+    try:
+        arts = exported(exports, ("w8a8",))
+        export_s = sum(arts["meta"]["export_seconds"].values())
+        aot.save_bundle({**arts, **square["prior"]}, tmp)
+        aot.save_weights(rtq, tmp / "weights.safetensors")
+        del arts
+        (tmp / "streams").mkdir()
+        for j, stream in enumerate(streams):
+            (tmp / "streams" / f"{j:02d}.bin").write_bytes(stream)
+        with bundle_process(tmp) as proc:
+            launches, got, decoded = w8a8_checks(rt, rtq, square, seed,
+                                                 card)
+            torch.cuda.empty_cache()
+            res = finish_bundle(proc, tmp, "w8a8 bundle")
+        meta = json.loads((tmp / "meta.json").read_text())
+        if meta["quant"] != "w8a8" or res["quant"] != "w8a8" \
+                or res["model_modules"]:
+            raise AssertionError(f"w8a8 bundle: quant {meta['quant']}, "
+                                 f"model modules {res['model_modules']}")
+        if res["decode_launches"] != pipelined_launches((h, w), n, b, b) \
+                or res["int8_launches"] != got[2]:
+            raise AssertionError(f"w8a8 bundle launched K1/K2 "
+                                 f"{res['decode_launches']} and "
+                                 f"{res['int8_launches']} int8 products")
+        same = sum(torch.equal(a.to(c.device).float(),
+                               c.bfloat16().float())
+                   for a, c in zip(res["images"], decoded))
+        if same != n:
+            raise AssertionError(f"w8a8 bundle: {same} of {n} images equal "
+                                 f"the runtime's pipelined ones")
+        print(f"w8a8 bundle {h}x{w}x{b}: x0 and vae exported in "
+              f"{export_s:.1f} s by a process of their own; its {n} images "
+              f"equal the w8a8 runtime's pipelined ones bit for bit; meta "
+              f"quant {meta['quant']}", flush=True)
+    finally:
+        shutil.rmtree(tmp)
+    return launches
+
+
+def w8a8_checks(rt, rtq, square, seed: int, card: str):
+    """``w8a8_path``'s checks (a)-(d) and its costs on the w8a8 runtime
+    ``rtq``. Returns the pipelined decode's K1 / K2 launches, its K1 / K2
+    / int8 counts and its images."""
     from collections import Counter
 
-    from onedc_tpu_torch.models.onedc import OneDCRuntime
     from onedc_tpu_torch.nn import quant
     from onedc_tpu_torch.ops import conv3x3 as k2
     from onedc_tpu_torch.ops import flash_attention as k1
     from onedc_tpu_torch.ops import w8a8
-    from onedc_tpu_torch.utils import aot
     from tools.profile_port_decode import profiled
 
-    rtq = OneDCRuntime(rt.model, dtype=torch.bfloat16, device=rt.device,
-                       quant="w8a8")
     streams, plans, exact = (square[k] for k in ("streams", "plans",
                                                  "images"))
     n = len(streams)
@@ -2009,51 +2142,7 @@ def w8a8_path(rt, square, seed: int, card: str):
     out = Path(__file__).resolve().parent / "build"
     out.mkdir(exist_ok=True)
     (out / "w8a8_costs.json").write_text(json.dumps(record))
-
-    # (e) a w8a8 bundle served by a fresh process
-    h, w, b = BUNDLE_BUCKET
-    tmp = Path(tempfile.mkdtemp(prefix="onedc_w8a8_bundle_"))
-    try:
-        t0 = time.perf_counter()
-        arts = aot.export_serving_bundle(rtq, h, w, batch=b)
-        export_s = time.perf_counter() - t0
-        aot.save_bundle(arts, tmp)
-        aot.save_weights(rtq, tmp / "weights.safetensors")
-        del arts
-        (tmp / "streams").mkdir()
-        for j, stream in enumerate(streams):
-            (tmp / "streams" / f"{j:02d}.bin").write_bytes(stream)
-        torch.cuda.empty_cache()
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--serve-bundle",
-             str(tmp)], capture_output=True, text=True, timeout=900)
-        print(proc.stdout, end="", flush=True)
-        if proc.returncode != 0:
-            raise AssertionError(f"the w8a8 bundle process failed:\n"
-                                 f"{proc.stderr[-4000:]}")
-        res = torch.load(tmp / "result.pt", weights_only=False)
-        meta = json.loads((tmp / "meta.json").read_text())
-        if meta["quant"] != "w8a8" or res["quant"] != "w8a8" \
-                or res["model_modules"]:
-            raise AssertionError(f"w8a8 bundle: quant {meta['quant']}, "
-                                 f"model modules {res['model_modules']}")
-        if res["decode_launches"] != pipelined_launches((h, w), n, b, b) \
-                or res["int8_launches"] != got[2]:
-            raise AssertionError(f"w8a8 bundle launched K1/K2 "
-                                 f"{res['decode_launches']} and "
-                                 f"{res['int8_launches']} int8 products")
-        same = sum(torch.equal(a.to(c.device).float(),
-                               c.bfloat16().float())
-                   for a, c in zip(res["images"], decoded))
-        if same != n:
-            raise AssertionError(f"w8a8 bundle: {same} of {n} images equal "
-                                 f"the runtime's pipelined ones")
-        print(f"w8a8 bundle {h}x{w}x{b}: exported in {export_s:.1f} s; its "
-              f"{n} images equal the w8a8 runtime's pipelined ones bit for "
-              f"bit; meta quant {meta['quant']}", flush=True)
-    finally:
-        shutil.rmtree(tmp)
-    return launches
+    return launches, got, decoded
 
 
 def serve_bundle(directory: Path, card: str) -> int:
@@ -2069,6 +2158,7 @@ def serve_bundle(directory: Path, card: str) -> int:
     from onedc_tpu_torch.ops import flash_attention as k1
     from onedc_tpu_torch.ops import w8a8
     from onedc_tpu_torch.serving.decoder import ServingDecoder
+    from onedc_tpu_torch.serving.encoder import ServingEncoder
 
     counts = (k1, k2)
     streams = [p.read_bytes()
@@ -2078,8 +2168,14 @@ def serve_bundle(directory: Path, card: str) -> int:
     weights_s = time.perf_counter() - t0
     for name in ("begin", "x0", "vae") + tuple(
             f"update{s}{x}" for s in range(4) for x in ("", "_i8")):
-        dec.bundle.program(name)
+        if dec.bundle.has(name):
+            dec.bundle.program(name)
+    enc = None
+    if (directory / "encode.npy").exists():
+        enc = ServingEncoder(directory, dec.bundle.weights)
     load_s = time.perf_counter() - t0 - weights_s
+    n_programs = len(dec.bundle.modules) + (enc is not None)
+    wait_for_go(directory)
     y_hats, dtypes = [], []
     programs = dec._programs
     dec._programs = lambda: recording(programs(), y_hats, dtypes)
@@ -2098,14 +2194,15 @@ def serve_bundle(directory: Path, card: str) -> int:
               "int8_launches": int8_launches,
               "quant": dec.bundle.meta["quant"]}
     encoded = []
-    if (directory / "encode.npy").exists():
-        encoded = bundle_encode(directory, dec, counts, result)
+    if enc is not None:
+        encoded = bundle_encode(directory, enc, counts, result)
     result["model_modules"] = sorted(m for m in sys.modules
                                      if m.startswith(MODEL_MODULES))
     torch.save(result, directory / "result.pt")
     print(f"bundle process on {card} (quant {result['quant']}): weights "
-          f"placed in {weights_s:.1f} s, {len(dec.bundle.modules)} programs "
-          f"loaded in {load_s:.1f} s; ServingDecoder K1/K2 launches "
+          f"placed in {weights_s:.1f} s, {n_programs} programs loaded in "
+          f"{load_s:.1f} s (beside the smoke process's own work); "
+          f"ServingDecoder K1/K2 launches "
           f"{decode_launches} and {int8_launches} int8 products on "
           f"{len(streams)} streams, decodes/s {json.dumps(bundle_rates)}; "
           f"ServingEncoder K1/K2 launches "
@@ -2115,13 +2212,10 @@ def serve_bundle(directory: Path, card: str) -> int:
     return 0
 
 
-def bundle_encode(directory: Path, dec, counts, result: dict):
-    """The bundle process's ``ServingEncoder`` on DIR/encode.npy: its
-    containers, the encode program's plans and the launches go into
+def bundle_encode(directory: Path, enc, counts, result: dict):
+    """The bundle process's ``ServingEncoder`` ``enc`` on DIR/encode.npy:
+    its containers, the encode program's plans and the launches go into
     ``result``; returns the containers."""
-    from onedc_tpu_torch.serving.encoder import ServingEncoder
-
-    enc = ServingEncoder(directory, dec.bundle.weights)
     plans = []
     encode = enc._encode
 
@@ -2142,6 +2236,131 @@ def bundle_encode(directory: Path, dec, counts, result: dict):
     result["containers"] = [c for c, _ in encoded]
     result["plans"] = plans[:len(encoded)]
     return encoded
+
+
+def wait_for_go(directory: Path) -> None:
+    """The bundle process waits here, its bundle loaded, until the smoke
+    process lets it decode (``finish_bundle``); it exits if that process
+    is gone."""
+    parent = os.getppid()
+    while not (directory / "go").exists():
+        if os.getppid() != parent:
+            raise SystemExit("the smoke process is gone")
+        time.sleep(0.01)
+
+
+def start_child(flag: str, directory: Path) -> subprocess.Popen:
+    """This script in a fresh process, ``flag DIRECTORY``, its output in
+    DIRECTORY."""
+    with open(directory / "stdout.txt", "w") as out, \
+            open(directory / "stderr.txt", "w") as err:
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), flag,
+             str(directory)], stdout=out, stderr=err)
+
+
+def wait_child(proc, directory: Path, what: str) -> None:
+    """Waits for ``start_child``'s process, prints its output and raises
+    if it failed."""
+    rc = proc.wait(timeout=900)
+    print((directory / "stdout.txt").read_text(), end="", flush=True)
+    if rc != 0:
+        err = (directory / "stderr.txt").read_text()[-4000:]
+        raise AssertionError(f"the {what} process failed:\n{err}")
+
+
+def stop_children(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+@contextlib.contextmanager
+def bundle_process(directory: Path):
+    """A bundle process (``serve_bundle``) on DIRECTORY, started now: it
+    loads the bundle on the host while this process goes on with the
+    phase, and decodes once ``finish_bundle`` lets it, alone on the card.
+    It is killed if the phase fails first."""
+    proc = start_child("--serve-bundle", directory)
+    try:
+        yield proc
+    finally:
+        stop_children([proc])
+
+
+def finish_bundle(proc, directory: Path, what: str) -> dict:
+    """Lets the bundle process decode, waits for its end, prints its output
+    and returns its DIRECTORY/result.pt."""
+    (directory / "go").touch()
+    wait_child(proc, directory, what)
+    return torch.load(directory / "result.pt", weights_only=False)
+
+
+def export_bundle(directory: Path, card: str) -> int:
+    """The export process (``--export-bundle DIR``): the full-width model
+    built as the decode phase builds it (bf16 runtime, then the w8a8 one
+    on its model), DIR/spec.json's programs of its quant mode exported at
+    BUNDLE_BUCKET into DIR (``utils/aot.py:save_bundle``)."""
+    from onedc_tpu_torch.models.onedc import OneDC, OneDCRuntime
+    from onedc_tpu_torch.utils import aot
+
+    spec = json.loads((directory / "spec.json").read_text())
+    with torch.device("cuda"):
+        model = OneDC()
+    init_random_weights(model, spec["seed"])
+    rt = OneDCRuntime(model, dtype=torch.bfloat16)
+    if spec["quant"] is not None:
+        rt = OneDCRuntime(rt.model, dtype=torch.bfloat16, device=rt.device,
+                          quant=spec["quant"])
+    torch.cuda.empty_cache()
+    h, w, b = BUNDLE_BUCKET
+    arts = aot.export_serving_bundle(rt, h, w, batch=b,
+                                     programs=spec["programs"])
+    aot.save_bundle(arts, directory)
+    print(f"export process on {card}: {sorted(k for k in arts if k != 'meta')}"
+          f" ({spec['quant'] or 'exact'}) in "
+          f"{sum(arts['meta']['export_seconds'].values()):.1f} s", flush=True)
+    return 0
+
+
+@contextlib.contextmanager
+def export_processes(seed: int):
+    """One ``export_bundle`` process per BUNDLE_EXPORTS entry, started now
+    and left to run beside the phases that follow. Yields {name: (process,
+    directory)}; kills what still runs on the way out."""
+    root = Path(tempfile.mkdtemp(prefix="onedc_exports_"))
+    procs = {}
+    try:
+        for name, quant, programs in BUNDLE_EXPORTS:
+            directory = root / name
+            directory.mkdir()
+            (directory / "spec.json").write_text(json.dumps(
+                {"seed": seed, "quant": quant, "programs": list(programs)}))
+            procs[name] = (start_child("--export-bundle", directory),
+                           directory)
+        yield procs
+    finally:
+        stop_children([proc for proc, _ in procs.values()])
+        shutil.rmtree(root)
+
+
+def exported(exports, names) -> dict:
+    """The artifacts of the export processes ``names`` (waited for), as one
+    bundle dict: their programs' bytes and the first one's meta, with every
+    program's export seconds."""
+    arts = {}
+    for name in names:
+        proc, directory = exports[name]
+        wait_child(proc, directory, f"{name} export")
+        meta = json.loads((directory / "meta.json").read_text())
+        if "meta" in arts:
+            arts["meta"]["export_seconds"].update(meta["export_seconds"])
+        else:
+            arts["meta"] = meta
+        for program in meta["export_seconds"]:
+            arts[program] = (directory / f"{program}.pt2").read_bytes()
+    return arts
 
 
 def tf32_probe(seed: int):
@@ -2619,12 +2838,12 @@ def _timed(fn, log: list):
 def quality_path(seed: int, release: Path, card: str):
     """The quality phase: ``eval.rd_sweep.main`` on configs/rd_sweep.yaml
     with two points on the cli phase's release (``checkpoint_path=``,
-    bf16): ``lmbda`` and ``exlow`` (``model: {z_only: true}``), over the
-    Kodak-sized set (SERVING_SIZES) as PNGs, with seeded random LPIPS,
-    DISTS and InceptionV3 (1008 classes) files written through the port's
-    converters and writer. ``rd_curve.csv`` must hold both points sorted
-    by bpp (exlow's below lmbda's, its y rate 0) with every metric finite;
-    the sweep's K1 / K2 launches are ``quality_launches``. On two
+    bf16): ``lmbda`` and ``exlow`` (``model: {z_only: true}``), over
+    QUALITY_SIZES (half the Kodak-sized set) as PNGs, with seeded random
+    LPIPS, DISTS and InceptionV3 (1008 classes) files written through the
+    port's converters and writer. ``rd_curve.csv`` must hold both points
+    sorted by bpp (exlow's below lmbda's, its y rate 0) with every metric
+    finite; the sweep's K1 / K2 launches are ``quality_launches``. On two
     source/recon pairs of the lmbda point the card's metrics are held
     against plain references: PSNR and MS-SSIM against numpy f64
     (``quality_reference_f64``), LPIPS, DISTS and the Inception features
@@ -2643,9 +2862,9 @@ def quality_path(seed: int, release: Path, card: str):
     try:
         folder = tmp / "kodak"
         folder.mkdir()
-        batch = next(synthetic_batches(seed + 2, len(SERVING_SIZES), 768))
-        names = [f"kodim{i + 1:02d}" for i in range(len(SERVING_SIZES))]
-        for name, im, (h, w) in zip(names, batch["image"], SERVING_SIZES):
+        batch = next(synthetic_batches(seed + 2, len(QUALITY_SIZES), 768))
+        names = [f"kodim{i + 1:02d}" for i in range(len(QUALITY_SIZES))]
+        for name, im, (h, w) in zip(names, batch["image"], QUALITY_SIZES):
             save_image(im[:h, :w], folder / f"{name}.png")
         paths = {}
         for net, flat in (("lpips", lpips.random_lpips_weights(seed)),
@@ -2681,7 +2900,7 @@ def quality_path(seed: int, release: Path, card: str):
                 setattr(*key, fn)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         launches = {"K1": k1.launches, "K2": k2.launches}
-        want = quality_launches(SERVING_SIZES)
+        want = quality_launches(QUALITY_SIZES)
         walls = list(zip(point_s, metric_s))
         print(f"quality: rd_sweep of 2 points x {len(names)} images launched "
               f"K1/K2 {tuple(launches.values())}, expected {want}; per point "
@@ -2723,7 +2942,7 @@ def quality_path(seed: int, release: Path, card: str):
                  "features": 0.0, "logits": 0.0}
         # a landscape and a portrait image
         pairs = [names[0], names[next(i for i, size in enumerate(
-            SERVING_SIZES) if size != SERVING_SIZES[0])]]
+            QUALITY_SIZES) if size != QUALITY_SIZES[0])]]
         for name in pairs:
             x = load_image(folder / f"{name}.png") * 0.5 + 0.5
             y = load_image(recon / f"{name}.png") * 0.5 + 0.5
@@ -2784,7 +3003,7 @@ def quality_path(seed: int, release: Path, card: str):
         rates["inception_patches_per_s"] = len(patches) / (_wall_ms(
             lambda: card_inc(patches)) / 1e3)
         print(f"quality rates ({card}; {len(names)} images of "
-              f"{SERVING_SIZES[0][0]}x{SERVING_SIZES[0][1]} or transposed, "
+              f"{QUALITY_SIZES[0][0]}x{QUALITY_SIZES[0][1]} or transposed, "
               f"{len(patches)} patches of 256x256): " + json.dumps(rates),
               flush=True)
         del card_fns, cpu_fns, card_inc, cpu_inc, xs, ys
@@ -3062,6 +3281,156 @@ def tiled_path(rt, seed: int):
     return launches
 
 
+def data_mesh_launches():
+    """(K1, K2) of one rank in the spatial phase's data-axis part: its
+    ``encode_batch`` of its DATA_MESH_IMAGES / 2 rows (one device batch;
+    rank 1's padding row with them) and its ``decode_batch`` of as many
+    streams (pipelined)."""
+    size = SPATIAL_SIZE
+    rows = -(-DATA_MESH_IMAGES // SPATIAL_BANDS)
+    encode = ENCODE_PER_CALL[size]
+    decode = pipelined_launches(size, rows)
+    return tuple(a + b for a, b in zip(encode, decode))
+
+
+def _mesh_rank(rank: int, rendezvous: str, seed: int, stream: bytes,
+               images: np.ndarray) -> dict:
+    """One process of the spatial phase, on the one card: the seeded
+    full-width bf16 runtime (the weights of the main process's), the
+    stream decoded as a band of a tensor axis of SPATIAL_BANDS, then
+    ``encode_batch`` and ``decode_batch`` of ``images`` over a data axis of
+    SPATIAL_BANDS; launches counted around each; each stream this rank
+    wrote decoded to its plan."""
+    from onedc_tpu_torch.models.onedc import OneDC, OneDCRuntime
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.parallel.distributed import init_group
+    from onedc_tpu_torch.parallel.mesh import make_mesh, rank_rows, real_rows
+    from onedc_tpu_torch.parallel.spatial import enable_spatial_decode
+    from onedc_tpu_torch.utils.numerics import pinned_numerics
+
+    torch.cuda.set_device(0)
+    init_group("gloo", rank, SPATIAL_BANDS,
+               init_method=f"file://{rendezvous}")
+    with torch.device("cuda"):
+        model = OneDC()
+    init_random_weights(model, seed)
+    out = {}
+    with pinned_numerics():
+        bands = make_mesh("cuda", data=1, tensor=SPATIAL_BANDS)
+        rt = enable_spatial_decode(OneDCRuntime(model, dtype=torch.bfloat16),
+                                   bands)
+        rt.decode(stream)  # first call: cuDNN plans, kernels loaded
+        walls = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            k1.launches = k2.launches = 0
+            t0 = time.perf_counter()
+            image = rt.decode(stream)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                out["spatial_launches"] = (k1.launches, k2.launches)
+        out["spatial_ms"] = walls
+        if rank == 0:
+            out["image"] = image.cpu()
+        data = make_mesh("cuda", data=SPATIAL_BANDS, tensor=1)
+        rtd = OneDCRuntime(model, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        k1.launches = k2.launches = 0
+        t0 = time.perf_counter()
+        written = rtd.encode_batch(images, mesh=data)
+        streams = [s for s, _ in written]
+        decoded = rtd.decode_batch(streams, mesh=data)
+        torch.cuda.synchronize()
+        out["data_ms"] = (time.perf_counter() - t0) * 1e3
+        out["data_launches"] = (k1.launches, k2.launches)
+        if len(decoded) != len(images) or any(
+                d.shape != (1, *SPATIAL_SIZE, 3)
+                or not torch.isfinite(d).all() for d in decoded):
+            raise AssertionError(f"rank {rank}: decode_batch over the data "
+                                 f"axis returned a bad image")
+        rows = rank_rows(len(images), data)
+        plan = rtd.write_plan(images[rows])
+        for j in range(real_rows(len(images), data)):
+            check_stream_decodes_to_plan(rtd, streams[rows[j]], plan, j,
+                                         f"rank {rank} row {rows[j]}")
+        out["streams"] = [len(x) for x in streams]
+        out["checked_rows"] = rows[:real_rows(len(images), data)]
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def _mesh_rank_entry(rank, tmp, seed, stream, images):
+    out = _mesh_rank(rank, f"{tmp}/rendezvous", seed, stream, images)
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+
+
+def spatial_path(rt, seed: int):
+    """The spatial phase: a SPATIAL_SIZE stream written with the main
+    runtime's programs, decoded once whole by ``rt`` and once by
+    SPATIAL_BANDS processes (``parallel/spatial.py``: rows split over the
+    ``tensor`` axis, all-gathered), the two images within the BATCH_*
+    limits; each band's K1 / K2 launches as the "spatial768" tables give
+    them; then the data axis's batch codecs (``_mesh_rank``). Returns the
+    phase's K1 / K2 launches by path."""
+    import torch.multiprocessing as mp
+
+    h, w = SPATIAL_SIZE
+    stream, _, _ = write_synthetic_stream(rt, h, w, seed + 50)
+    single = rt.decode(stream)
+    torch.cuda.synchronize()
+    images = next(synthetic_batches(seed + 51, DATA_MESH_IMAGES, h))["image"]
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_spatial_"))
+    t0 = time.perf_counter()
+    try:
+        mp.spawn(_mesh_rank_entry, nprocs=SPATIAL_BANDS,
+                 args=(str(tmp), seed, stream, images))
+        results = [torch.load(tmp / f"rank{r}.pt")
+                   for r in range(SPATIAL_BANDS)]
+    finally:
+        shutil.rmtree(tmp)
+    wall_s = time.perf_counter() - t0
+    image = results[0]["image"].to(single.device)
+    diff = (image - single).float()
+    rel_l2 = (diff.norm() / single.float().norm()).item()
+    rel_max = (diff.abs().max() / single.abs().max()).item()
+    per_band = (sum(n for _, n in K1_SHAPES["spatial768"]),
+                sum(n for _, n in K2_SHAPES["spatial768"]))
+    print(f"spatial: {h}x{w} over {SPATIAL_BANDS} bands (gloo, one card) "
+          f"against the single decode: relative L2 {rel_l2:.3e} (tol "
+          f"{BATCH_REL_L2_TOL}), max {rel_max:.3e} of max|ref| (tol "
+          f"{BATCH_MAX_TOL}); K1/K2 launches by band "
+          f"{[r['spatial_launches'] for r in results]} (each {per_band}); "
+          f"band decode wall ms {[r['spatial_ms'] for r in results]}; "
+          f"data axis: encode_batch + decode_batch of {DATA_MESH_IMAGES} "
+          f"images {[round(r['data_ms'], 1) for r in results]} ms, K1/K2 "
+          f"{[r['data_launches'] for r in results]} (each "
+          f"{data_mesh_launches()}), rows checked against their plans "
+          f"{[r['checked_rows'] for r in results]}; the phase's processes "
+          f"{wall_s:.1f} s", flush=True)
+    if not (rel_l2 <= BATCH_REL_L2_TOL and rel_max <= BATCH_MAX_TOL):
+        raise AssertionError("the spatial decode disagrees with the single "
+                             "decode")
+    for r in results:
+        if r["spatial_launches"] != per_band:
+            raise AssertionError(f"a band launched K1/K2 "
+                                 f"{r['spatial_launches']}, expected "
+                                 f"{per_band}")
+        if r["data_launches"] != data_mesh_launches():
+            raise AssertionError(f"a data rank launched K1/K2 "
+                                 f"{r['data_launches']}, expected "
+                                 f"{data_mesh_launches()}")
+    if sorted(j for r in results for j in r["checked_rows"]) != list(
+            range(DATA_MESH_IMAGES)):
+        raise AssertionError("not every stream was checked by its writer")
+    return ({"K1": sum(r["spatial_launches"][0] for r in results),
+             "K2": sum(r["spatial_launches"][1] for r in results)},
+            {"K1": sum(r["data_launches"][0] for r in results),
+             "K2": sum(r["data_launches"][1] for r in results)})
+
+
 def train_loop_path(seed: int):
     """The training-loop phase: ``train.trainer.main`` on
     configs/train_stage1.yaml with ``train_overrides`` (a seeded random
@@ -3219,8 +3588,12 @@ class _NoUpdate:
 
 
 def _grad_copies(model) -> dict:
-    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
-            if p.grad is not None}
+    """Each gradient, whole: under the phase's FSDP over one process a
+    shard is the whole tensor."""
+    from onedc_tpu_torch.parallel.fsdp import local
+
+    return {n: local(p.grad).detach().clone()
+            for n, p in model.named_parameters() if p.grad is not None}
 
 
 def _grad_rel_l2(got: dict, want: dict):
@@ -3242,6 +3615,7 @@ def adafactor_card_against_cpu(model, names, cfg) -> float:
     step: p - lr * u then rounds the same update differently on the two
     sides): the largest relative L2 of the two steps' difference and of
     the two states' difference."""
+    from onedc_tpu_torch.parallel.fsdp import local
     from onedc_tpu_torch.train.step import Adafactor
 
     named = dict(model.named_parameters())
@@ -3249,8 +3623,10 @@ def adafactor_card_against_cpu(model, names, cfg) -> float:
     for device in ("cuda", "cpu"):
         params = []
         for n in names:
-            p = torch.nn.Parameter(named[n].detach().to(device, copy=True))
-            p.grad = named[n].grad.detach().to(device, copy=True)
+            # under the phase's FSDP over one process a shard is the whole
+            p = torch.nn.Parameter(local(named[n]).detach().to(device,
+                                                               copy=True))
+            p.grad = local(named[n].grad).detach().to(device, copy=True)
             params.append(p)
         opt = Adafactor(params, 1.0, int(cfg["warmup_steps"]),
                         float(cfg["grad_clip"]))
@@ -3359,6 +3735,54 @@ def stage1_checks(trainer, seed: int) -> dict:
                 accum_metric_rel=metric_err, adafactor_rel_l2=worst)
 
 
+def _host_state(trainer):
+    """(the trainer's checkpoint tensors on the host, FSDP shards gathered
+    whole; its metadata)."""
+    tensors, meta = trainer.checkpoint_state()
+    return {k: (v.full_tensor() if isinstance(v, DTensor) else v
+                ).detach().cpu().clone() for k, v in tensors.items()}, meta
+
+
+def stage1_resume(argv, want: dict, want_meta: dict, run_dir: Path) -> dict:
+    """``trainer.main(argv + ["--resume"])``: a fresh FSDP trainer restores
+    the STAGE1_SAVE checkpoint and runs the last step again; every tensor
+    of its state equals the uninterrupted run's bit for bit. Returns the
+    checkpoint's bytes, save and restore seconds and the resumed run's
+    peak."""
+    from onedc_tpu_torch.train import trainer as tr
+    from onedc_tpu_torch.utils.logging import read_metrics
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    resumed = tr.main(list(argv) + ["--resume"])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got, meta = _host_state(resumed)
+    del resumed
+    torch.cuda.empty_cache()
+    if meta != want_meta or sorted(got) != sorted(want):
+        raise AssertionError(f"resumed state {meta} against {want_meta}")
+    moved = [k for k in want if not torch.equal(got[k], want[k])]
+    rows = read_metrics(run_dir)
+    save = next(r for r in rows if "checkpoint/save_s" in r)
+    restore = next(r for r in rows if "checkpoint/restore_s" in r)
+    out = dict(bytes=int(save["checkpoint/bytes"]),
+               save_s=save["checkpoint/save_s"],
+               restore_s=restore["checkpoint/restore_s"],
+               resumed_wall_s=wall_s,
+               resumed_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               tensors=len(want))
+    print(f"stage1: checkpoint of step {STAGE1_SAVE} ({out['bytes']} bytes) "
+          f"saved in {out['save_s']:.2f} s, restored in "
+          f"{out['restore_s']:.2f} s by a fresh FSDP trainer, which ran the "
+          f"last step again in {wall_s:.1f} s (build included): "
+          f"{len(want) - len(moved)} of {len(want)} tensors bit-identical "
+          f"to the uninterrupted run's", flush=True)
+    if moved:
+        raise AssertionError(f"the resumed run differs: {moved[:4]}")
+    return out
+
+
 def stage1_yaml_path(seed: int):
     """The stage-I yaml phase: ``train.trainer.main`` on
     configs/train_stage1.yaml as shipped (Adafactor, the Codeformer with
@@ -3430,7 +3854,8 @@ def stage1_yaml_path(seed: int):
                          lpips_weights=str(tmp / "lpips.safetensors"),
                          train_data=str(tmp / "train"), eval_data=None,
                          run_dir=str(tmp / "run"), total_steps=STAGE1_STEPS,
-                         log_interval=1)
+                         log_interval=1, save_interval=STAGE1_SAVE,
+                         max_checkpoint=1)
         for key, value in overrides.items():
             print(f"stage1 override: {key} = {value!r}", flush=True)
         argv = ["--config", "configs/train_stage1.yaml"] + [
@@ -3443,8 +3868,18 @@ def stage1_yaml_path(seed: int):
         finally:
             tr.Trainer.train_one_step = step_fn
         got = tuple(getattr(m, a) for m, a in counters)
+        # the uninterrupted run's state at its last step, for the resume
+        want_state, want_meta = _host_state(trainer)
         cfg = trainer.cfg
         opt = trainer.state.optimizer
+        sharded = sum(isinstance(p, DTensor) for p in opt.params)
+        print(f"stage1: fsdp {cfg['fsdp']}: {sharded} of {len(opt.params)} "
+              f"trainable tensors sharded over a mesh of "
+              f"{trainer.mesh['data'].size()} ({torch.distributed.get_backend()}"
+              f"), {len(trainer.replicated)} replicated with gradients",
+              flush=True)
+        if not (cfg["fsdp"] and sharded):
+            raise AssertionError("the phase does not run the yaml's FSDP")
         state_bytes = sum(t.numel() * t.element_size() for t in
                           opt.named_state(trainer.trainable_names).values())
         trainable_bytes = sum(p.numel() * p.element_size()
@@ -3533,9 +3968,12 @@ def stage1_yaml_path(seed: int):
         trainer.model.zero_grad(set_to_none=True)
         torch.cuda.empty_cache()
         checks = stage1_checks(trainer, seed)
+        del trainer, opt
+        torch.cuda.empty_cache()
+        resume = stage1_resume(argv, want_state, want_meta, tmp / "run")
+        del want_state
     finally:
         shutil.rmtree(tmp)
-    del trainer
     torch.cuda.empty_cache()
     by_res = {}
     for r in records[:STAGE1_STEPS]:
@@ -3554,7 +3992,7 @@ def stage1_yaml_path(seed: int):
     print("stage1 records " + json.dumps(dict(
         steps=records, by_resolution=summary, checks=checks,
         paired_512={k: dict(peak_gib=r["peak_gib"], wall_s=r["wall_s"])
-                    for k, r in paired.items()},
+                    for k, r in paired.items()}, resume=resume,
         adafactor_update_s=update_s, optimizer_state_bytes=state_bytes,
         trainable_bytes=trainable_bytes)), flush=True)
     print(f"stage1: K1/K1-bwd/K2/K3 launches {got}, expected {want}",
@@ -3858,8 +4296,10 @@ def stage2_path(seed: int):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    # the serving phase's bundle process (a fresh interpreter)
+    # the serving phase's bundle process and the bundles' export processes
+    # (fresh interpreters)
     parser.add_argument("--serve-bundle", type=Path, help=argparse.SUPPRESS)
+    parser.add_argument("--export-bundle", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -3867,10 +4307,12 @@ def main():
         return 1
     t_start = time.perf_counter()
     card = card_line()
-    if args.serve_bundle is not None:
+    if args.serve_bundle is not None or args.export_bundle is not None:
         from onedc_tpu_torch.utils.numerics import pinned_numerics
 
         with pinned_numerics():
+            if args.export_bundle is not None:
+                return export_bundle(args.export_bundle, card)
             return serve_bundle(args.serve_bundle, card)
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
@@ -3889,7 +4331,7 @@ def main():
     # the numerics the package pins in its entry points, here for the whole
     # run: the kernel phase's library baselines and the direct calls of the
     # model's programs that the checks make
-    with pinned_numerics():
+    with pinned_numerics(), contextlib.ExitStack() as stack:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(args.seed)
         k1_rows = check_k1(gen)
@@ -3907,14 +4349,21 @@ def main():
         decode = main_path(rt, args.seed)
         encode = encode_path(rt, args.seed)
         z_only = z_only_path(rt, args.seed)
+        # the bundles' exports (host work) run beside the spatial and
+        # serving phases
+        torch.cuda.empty_cache()
+        exports = stack.enter_context(export_processes(args.seed))
+        t0 = time.perf_counter()
+        spatial, data_mesh = spatial_path(rt, args.seed)
+        print(f"spatial phase: {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"peak device memory (decode, encode, z-only) "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         t0 = time.perf_counter()
-        serve, bundle, square = serve_path(rt, args.seed, card)
+        serve, bundle, square = serve_path(rt, args.seed, card, exports)
         print(f"serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
-        decode_w8a8 = w8a8_path(rt, square, args.seed, card)
+        decode_w8a8 = w8a8_path(rt, square, args.seed, card, exports)
         print(f"w8a8 phase: {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         tiled = tiled_path(rt, args.seed)
@@ -3972,12 +4421,14 @@ def main():
                "decode_z_only": z_only["K1"], "serve": serve["K1"],
                "bundle": bundle["K1"], "decode_w8a8": decode_w8a8["K1"],
                "cli": cli["K1"], "quality": quality["K1"],
-               "tiled": tiled["K1"]}
+               "tiled": tiled["K1"], "spatial": spatial["K1"],
+               "data_mesh": data_mesh["K1"]}
     k2_bf16 = {"decode": decode["K2"], "encode": encode["K2"],
                "decode_z_only": z_only["K2"], "serve": serve["K2"],
                "bundle": bundle["K2"], "decode_w8a8": decode_w8a8["K2"],
                "cli": cli["K2"], "quality": quality["K2"],
-               "tiled": tiled["K2"]}
+               "tiled": tiled["K2"], "spatial": spatial["K2"],
+               "data_mesh": data_mesh["K2"]}
     k1_f32, k1_bwd, k2_f32, k3 = (
         {"train": train[k], "train_loop": train_loop[k],
          "stage1_yaml": stage1[k], "stage2": stage2[k]}

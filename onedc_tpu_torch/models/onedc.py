@@ -26,6 +26,15 @@ decode and the exported decode programs. Encode, the four-part prior loop
 and the codec finish stay exact, so its containers and y_hat are the exact
 runtime's.
 
+``mesh=`` (``parallel/mesh.py``) on ``encode_batch``, ``encode_many`` and
+``decode_batch`` splits the images over the mesh's ``data`` axis, as the
+JAX ``mesh=`` shards the device batch (JAX :385, 467, 534): each data rank
+codes its rows of the batch padded as JAX pads it (the last row repeated),
+and every rank returns the whole list, all-gathered.
+``parallel/spatial.py:enable_spatial_decode`` splits the post-bitstream
+programs (``decode_x0``, ``decode_vae``, ``decode_z_only``) by rows over
+the ``tensor`` axis.
+
 ``OneDCRuntime`` runs on the card unless the caller names another device:
 with no device and no GPU it raises, it does not drop to the CPU. Its
 device arithmetic runs under ``utils.numerics.pinned_numerics``: every
@@ -51,6 +60,8 @@ from ..nn.diffusion import get_x0_from_noise, make_alphas_cumprod
 from ..nn.unet_sd import SD15CodecUNet
 from ..nn.vae import AutoencoderKL, TinyVaeDecoder, hwio_conv_weights
 from ..nn.vqgan import MaskGitVQGAN
+from ..parallel.mesh import gather_objects, gather_rows, rank_rows, \
+    real_rows
 from ..serving.encoder import pad_replicate
 from ..serving.pipeline import DecodePrograms, pipelined_decode
 from ..utils.device import resolve_device  # noqa: F401  (re-exported)
@@ -301,6 +312,19 @@ class OneDCRuntime:
         self.quant = quant
         self._w8a8 = q8.w8a8_table(model) if quant == "w8a8" else None
 
+    # the post-bitstream programs, whole tensors in and out; the spatial
+    # decode (``parallel/spatial.py:enable_spatial_decode``) shadows them
+    # with their row-split forms
+
+    def decode_x0(self, y_hat, z_semantic):
+        return self.model.decode_device_x0(y_hat, z_semantic)
+
+    def decode_vae(self, x0, large: Optional[bool] = None):
+        return self.model.decode_device_vae(x0, large)
+
+    def decode_z_only(self, z_indices, large: Optional[bool] = None):
+        return self.model.decode_device_z_only(z_indices, large)
+
     def quantized(self, fn):
         """``fn`` run in the runtime's quant mode: as it is when exact,
         inside ``nn.quant.w8a8_scope`` of the model's in-scope modules for
@@ -384,24 +408,41 @@ class OneDCRuntime:
                                          h, [caption], fp)[0]
 
     @torch.no_grad()
-    def encode_batch(self, images) -> List[Tuple[bytes, Dict[str, float]]]:
+    def encode_batch(self, images, mesh=None
+                     ) -> List[Tuple[bytes, Dict[str, float]]]:
         """N same-size images (N, H, W, 3) as one device batch, then one
-        container per image: [(stream, bpp dict)] in input order."""
+        container per image: [(stream, bpp dict)] in input order. With a
+        ``mesh``, each data rank encodes its rows of the batch (padded to
+        the axis by repeating the last image; no container for a padding
+        row) and every rank returns all N."""
         n, h, w, _ = images.shape
+        if mesh is not None:
+            images = images[rank_rows(n, mesh)]
+        real = real_rows(n, mesh)
         out = self.write_plan(images)
-        return self._write_chunk_streams(self._fetch(out), list(range(n)),
-                                         [None] * n, w, h, [""] * n)
+        local = self._write_chunk_streams(self._fetch(out), list(range(real)),
+                                          [None] * real, w, h, [""] * real)
+        return gather_objects(local, mesh, n)
 
     @torch.no_grad()
     def encode_many(self, images, captions=None,
-                    chunk: Optional[int] = None
+                    chunk: Optional[int] = None, mesh=None
                     ) -> List[Tuple[bytes, Dict[str, float]]]:
         """A list of (1, H, W, 3) images, bucketed by size and encoded in
         device chunks of ``chunk`` (default ``ONEDC_PIPELINE_CHUNK``, 8):
         every chunk's device half and its copy to the host are queued
         before any host work, then each chunk's containers are written
         once its copies are done, while the card encodes later chunks.
-        [(stream, bpp dict)] in input order."""
+        [(stream, bpp dict)] in input order. With a ``mesh``, each data
+        rank encodes its share of the list (``encode_batch``'s rows) and
+        every rank returns the whole list."""
+        if mesh is not None:
+            n = len(images)
+            mine = rank_rows(n, mesh)[:real_rows(n, mesh)]
+            caps = list(captions) if captions is not None else [""] * n
+            local = self.encode_many([images[i] for i in mine],
+                                     [caps[i] for i in mine], chunk)
+            return gather_objects(local, mesh, n)
         chunk = chunk or int(os.environ.get("ONEDC_PIPELINE_CHUNK", "8"))
         caps = list(captions) if captions is not None else [""] * len(images)
         if len(caps) != len(images):
@@ -446,7 +487,7 @@ class OneDCRuntime:
         stage_done = self._stage_clock(trace)
         z = np.concatenate([self.z_indices(d) for d in decs])
         if self.z_only:
-            image = self.quantized(self.model.decode_device_z_only)(
+            image = self.quantized(self.decode_z_only)(
                 torch.from_numpy(z).to(self.device), self.use_large_vae)
             return nhwc(image).float()
         rt = self._codec_rt
@@ -454,12 +495,11 @@ class OneDCRuntime:
         steps = trace.setdefault("steps", []) if trace is not None else None
         y_hat, z_semantic = rt.run_four_part_decode(z, coders, steps,
                                                     stage_done)
-        x0 = self.quantized(self.model.decode_device_x0)(y_hat, z_semantic)
+        x0 = self.quantized(self.decode_x0)(y_hat, z_semantic)
         if trace is not None:
             trace["y_hat"] = y_hat
             stage_done("finish_unet_x0")
-        image = self.quantized(self.model.decode_device_vae)(
-            x0, self.use_large_vae)
+        image = self.quantized(self.decode_vae)(x0, self.use_large_vae)
         if trace is not None:
             stage_done("vae")
         return nhwc(image).float()
@@ -496,7 +536,8 @@ class OneDCRuntime:
 
     @pinned
     @torch.no_grad()
-    def decode_batch(self, streams: Sequence[bytes]) -> List[torch.Tensor]:
+    def decode_batch(self, streams: Sequence[bytes], mesh=None
+                     ) -> List[torch.Tensor]:
         """Decode N streams, bucketed by padded size; results in input
         order, each (1, H, W, 3) f32. A bucket of more than one lambda
         stream runs the pipelined serving schedule
@@ -504,7 +545,10 @@ class OneDCRuntime:
         ``ONEDC_PIPELINE_DEPTH``, 3, in flight, the VAE in sub-batches of
         ``ONEDC_VAE_CHUNK``, 8), as the JAX ``decode_batch`` (:467-563)
         does; a one-stream bucket runs ``decode_padded``, and the z-only
-        model decodes in chunks of ``ONEDC_PIPELINE_CHUNK``."""
+        model decodes in chunks of ``ONEDC_PIPELINE_CHUNK``. With a
+        ``mesh``, each data rank decodes its rows of each bucket (padded
+        to the axis by repeating the last stream) and every rank returns
+        all N images, all-gathered."""
         decs = [self.parse(s) for s in streams]
         buckets: Dict[Tuple[int, int], List[int]] = {}
         for i, d in enumerate(decs):
@@ -512,14 +556,15 @@ class OneDCRuntime:
                                []).append(i)
         out: List[Optional[torch.Tensor]] = [None] * len(decs)
         for (ph, pw), idxs in buckets.items():
-            bucket = [decs[i] for i in idxs]
-            if self.z_only or len(idxs) == 1:
+            bucket = [decs[idxs[r]] for r in rank_rows(len(idxs), mesh)]
+            if self.z_only or len(bucket) == 1:
                 chunk = int(os.environ.get("ONEDC_PIPELINE_CHUNK", "8"))
                 preds = torch.cat([self.decode_padded(bucket[c0:c0 + chunk])
-                                   for c0 in range(0, len(idxs), chunk)])
+                                   for c0 in range(0, len(bucket), chunk)])
             else:
                 preds = nhwc(self._decode_pipelined(
                     bucket, ph // self.ds, pw // self.ds)).float()
+            preds = gather_rows(preds, mesh, len(idxs))
             for row, i in enumerate(idxs):
                 out[i] = self._unpad(preds[row:row + 1], decs[i])
         return out
@@ -529,13 +574,13 @@ class OneDCRuntime:
         prior programs one row at a time (``models/runtime.py``), then
         ``decode_device_x0`` and ``decode_device_vae`` on the chunk, in the
         runtime's quant mode."""
-        model, codec = self.model, self.model.codec
+        codec = self.model.codec
         return DecodePrograms(
             begin=lambda z: decode_begin(codec, z),
             update=[(lambda yq, m, yh, c, _s=s: decode_update(
                 codec, _s, yq, m, yh, c)) for s in range(4)],
-            x0=self.quantized(model.decode_device_x0),
-            vae=self.quantized(lambda x0: model.decode_device_vae(
+            x0=self.quantized(self.decode_x0),
+            vae=self.quantized(lambda x0: self.decode_vae(
                 x0, self.use_large_vae)))
 
     def _decode_pipelined(self, decs: List[dict], zh: int, zw: int

@@ -37,20 +37,25 @@ def einsum_attention(q, k, v, scale: float):
     return torch.einsum("bhqk,bhkd->bhqd", attn, v)
 
 
-def multi_head_attention_bnhd(q, k, v, scale: Optional[float] = None):
-    """(B, N, H, D) x (B, M, H, D) -> (B, N, H, D)."""
+def multi_head_attention_bnhd(q, k, v, scale: Optional[float] = None,
+                              route_n: Optional[int] = None):
+    """(B, N, H, D) x (B, M, H, D) -> (B, N, H, D). ``route_n``: the query
+    count that the routing rule reads (a spatial band's queries route as
+    the whole image's, ``parallel/spatial.py``); None: N."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if can_flash(q.shape[1], k.shape[1]):
+    if can_flash(route_n or q.shape[1], k.shape[1]):
         return flash_attention(q, k, v, scale)
     return attention_plain(q, k, v, scale)
 
 
-def multi_head_attention(q, k, v, scale: Optional[float] = None):
-    """(B, H, N, D) x (B, H, M, D) -> (B, H, N, D)."""
+def multi_head_attention(q, k, v, scale: Optional[float] = None,
+                         route_n: Optional[int] = None):
+    """(B, H, N, D) x (B, H, M, D) -> (B, H, N, D); ``route_n`` as in
+    ``multi_head_attention_bnhd``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if can_flash(q.shape[2], k.shape[2]):
+    if can_flash(route_n or q.shape[2], k.shape[2]):
         out = flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(), scale)

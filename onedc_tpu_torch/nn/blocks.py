@@ -24,15 +24,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from . import quant
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that a w8a8 scope runs in int8 (the conv rule)."""
+    """``nn.Conv2d`` that a w8a8 scope runs in int8 (the conv rule); a 3x3
+    conv inside a spatial band takes its halo rows
+    (``parallel/spatial.py``)."""
 
     w8a8_rule = "conv"
 
     def forward(self, x):
+        band = spatial.active()
+        if band is not None and self.kernel_size[0] == 3:
+            return band.conv(self, x)
         y = quant.intercept(self, x)
         return super().forward(x) if y is None else y
 
@@ -72,6 +78,9 @@ class UpsampleConv2x(nn.Conv2d):
         super().__init__(cin, cout, 3, padding=1, bias=bias)
 
     def forward(self, x):
+        band = spatial.active()
+        if band is not None:
+            return band.upsample_conv(self, x)
         y = quant.intercept(self, x)
         if y is not None:
             return y
@@ -87,7 +96,8 @@ def group_norm_affine(x: torch.Tensor, weight, bias, num_groups: int = 32,
     As ``onedc_tpu/nn/blocks.py:219-259``: sums of x and x^2 in f32, and
     the variance E[x^2] - mean^2 clamped at 0 (f32 cancellation can dip
     below it, which gave NaN at B >= 2 in the JAX package's history).
-    x is NCHW.
+    x is NCHW; inside a spatial band (``parallel/spatial.py``) the sums
+    are all-reduced over the bands, the image's statistics.
     """
     b, c = x.shape[:2]
     g = num_groups
@@ -96,6 +106,10 @@ def group_norm_affine(x: torch.Tensor, weight, bias, num_groups: int = 32,
     s1 = xf.sum(dim=(2, 3)).view(b, g, cpg).sum(-1)
     s2 = (xf * xf).sum(dim=(2, 3)).view(b, g, cpg).sum(-1)
     n = x.shape[2] * x.shape[3] * cpg
+    band = spatial.active()
+    if band is not None:
+        s1, s2 = band.sum(torch.stack([s1, s2])).unbind()
+        n *= band.size
     mean_g = s1 / n
     var_g = torch.clamp_min(s2 / n - mean_g * mean_g, 0.0)
     inv_g = torch.rsqrt(var_g + eps)

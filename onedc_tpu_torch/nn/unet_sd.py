@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
 from .attention import multi_head_attention_bnhd
 from .blocks import GroupNorm, Linear, conv1x1, conv3x3, tokens, \
     untokens
@@ -67,13 +68,21 @@ class CrossAttention(nn.Module):
         self.to_out_0 = Linear(inner, query_dim)
 
     def forward(self, x, context=None):
+        # inside a spatial band, self-attention's queries see every band's
+        # keys and values (``parallel/spatial.py``)
+        band = spatial.active() if context is None else None
         context = x if context is None else context
         b, n, _ = x.shape
         m = context.shape[1]
         q = self.to_q(x).view(b, n, self.heads, self.head_dim)
         k = self.to_k(context).view(b, m, self.heads, self.head_dim)
         v = self.to_v(context).view(b, m, self.heads, self.head_dim)
-        out = multi_head_attention_bnhd(q, k, v, self.head_dim ** -0.5)
+        route_n = None
+        if band is not None:
+            k, v = band.gather(k, 1), band.gather(v, 1)
+            route_n = n * band.size
+        out = multi_head_attention_bnhd(q, k, v, self.head_dim ** -0.5,
+                                        route_n)
         return self.to_out_0(out.reshape(b, n, self.heads * self.head_dim))
 
 

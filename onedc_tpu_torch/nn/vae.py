@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv3x3 import affine_silu_conv3x3
+from ..parallel import spatial
 from .attention import multi_head_attention
 from .blocks import GroupNorm, Linear, UpsampleConv2x, conv1x1, conv3x3
 
@@ -37,9 +38,15 @@ def fused_norm_silu_conv(x: torch.Tensor, norm: GroupNorm,
     ``hwio_conv_weights`` for the weight)."""
     mul, add = norm(x, return_affine=True)
     w = conv.weight.permute(2, 3, 1, 0).contiguous()  # OIHW -> HWIO
+    band = spatial.active()
+    keep = slice(None)
+    if band is not None:
+        # the neighbours' rows on interior sides; the kernel's own zero
+        # padding (after the activation) at the image's edges
+        x, keep = band.with_halo(x)
     out = affine_silu_conv3x3(x.permute(0, 2, 3, 1).contiguous(), mul, add,
                               w, conv.bias)
-    return out.permute(0, 3, 1, 2)
+    return out.permute(0, 3, 1, 2)[:, :, keep]
 
 
 @torch.no_grad()
@@ -110,14 +117,24 @@ class VaeAttention(nn.Module):
         _, c, h, w = x.shape
         xn = self.group_norm(x).permute(0, 2, 3, 1)  # NHWC
         p = self.attn_patch
-        windowed = p > 0 and (h > p or w > p) and h % p == 0 and w % p == 0
+        # a spatial band (``parallel/spatial.py``) decides as the image
+        band = spatial.active()
+        gh = h * band.size if band is not None else h
+        windowed = p > 0 and (gh > p or w > p) and gh % p == 0 and w % p == 0
+        if windowed and h % p:
+            raise ValueError(f"a band of {h} rows cuts the VAE's "
+                             f"{p}-row attention windows")
         if windowed:
             xn, meta = window_partition(xn, p)
         bb, hh, ww, _ = xn.shape
         flat = xn.reshape(bb, hh * ww, c)
         q, k, v = self.to_q(flat), self.to_k(flat), self.to_v(flat)
+        route_n = None
+        if band is not None and not windowed:  # global: every band's keys
+            k, v = band.gather(k, 1), band.gather(v, 1)
+            route_n = hh * ww * band.size
         out = multi_head_attention(q[:, None], k[:, None], v[:, None],
-                                   c ** -0.5)[:, 0]
+                                   c ** -0.5, route_n)[:, 0]
         out = self.to_out(out).reshape(bb, hh, ww, c)
         if windowed:
             out = window_merge(out, meta, p)

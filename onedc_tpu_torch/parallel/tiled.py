@@ -1,4 +1,4 @@
-"""Tiled high-resolution (4K) encode and decode on one card.
+"""Tiled high-resolution (4K) encode and decode.
 
 JAX counterpart: ``onedc_tpu/parallel/tiled.py`` (``plan_tiles`` :31,
 ``_ramp_weight`` :45, ``TiledCodec`` :55). The image is cut into
@@ -10,9 +10,11 @@ Container, as the JAX package writes it: magic ``ODTC``, then ``>HHHII``
 (tile, rows, cols, height, width), one ``>I`` length per tile, then the
 tiles' containers (each an ``encode_i`` frame).
 
+``mesh`` (``parallel/mesh.py``), as in JAX, passes on to the runtime's
+batch codecs: each ``data`` rank codes its share of the tiles and every
+rank returns the whole container or image.
+
 Differences from the JAX ``TiledCodec``:
-- no ``mesh`` argument: one card (the JAX package shards the tile batch
-  over a mesh's ``data`` axis);
 - encode sends the tiles through ``OneDCRuntime.encode_many``, in device
   chunks of ``ONEDC_PIPELINE_CHUNK`` (8) tiles, where JAX sends all of them
   through ``encode_batch`` as one batch (the 18 tiles of a 3840x2160 image
@@ -90,13 +92,15 @@ class TiledCodec:
     of a (1, H, W, 3) image in [-1, 1] -> (container, info dict);
     ``decode`` -> (1, H, W, 3) f32 on the runtime's device."""
 
-    def __init__(self, runtime, tile: int = 768, overlap: int = 64):
+    def __init__(self, runtime, tile: int = 768, overlap: int = 64,
+                 mesh=None):
         if tile % runtime.ds or overlap % 2:
             raise ValueError(f"tile {tile} must be a multiple of "
                              f"{runtime.ds} and overlap {overlap} even")
         self.rt = runtime
         self.tile = tile
         self.overlap = overlap
+        self.mesh = mesh
 
     # -- encode -------------------------------------------------------------
 
@@ -111,7 +115,7 @@ class TiledCodec:
         corners = plan_tiles(h, w, self.tile, self.overlap)
         tiles = [image[:, ty:ty + self.tile, tx:tx + self.tile, :]
                  for ty, tx in corners]
-        results = self.rt.encode_many(tiles)
+        results = self.rt.encode_many(tiles, mesh=self.mesh)
         streams = [s for s, _ in results]
         bits_total = sum(b["bits_total"] for _, b in results)
 
@@ -147,7 +151,7 @@ class TiledCodec:
                              f"decoder's overlap {self.overlap} plans "
                              f"{len(corners)}: decode with the encoder's "
                              f"overlap")
-        tiles = self.rt.decode_batch(subs)
+        tiles = self.rt.decode_batch(subs, mesh=self.mesh)
 
         device = self.rt.device
         acc = torch.zeros((h, w, 3), dtype=torch.float32, device=device)

@@ -40,8 +40,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from ..parallel.fsdp import all_reduce_mean_, local, shard_info, \
+    sharded_like
 from .losses import RDLoss
 
 
@@ -54,20 +57,38 @@ def warmup_constant_lr(count: int, lr: float, warmup_steps: int) -> float:
     return float((np.float32(0) - np.float32(lr)) * frac + np.float32(lr))
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (``optax.global_norm``),
-    in f32; 0 for no tensors."""
-    if not tensors:
-        return torch.zeros(())
+def _norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (``optax.global_norm``),
+    in f32; 0 for no tensors. FSDP's sharded tensors (DTensors) count
+    whole: their shards' sums of squares are all-reduced over their
+    group."""
+    if not tensors:
+        return torch.zeros(())
+    sharded = [t for t in tensors if shard_info(t) is not None]
+    if not sharded:
+        return _norm(tensors)
+    sq = _norm([local(t) for t in sharded]).square()
+    group = shard_info(sharded[0])[1]
+    if dist.get_world_size(group) > 1:
+        dist.all_reduce(sq, group=group)
+    plain = [t for t in tensors if shard_info(t) is None]
+    if plain:
+        sq = sq + _norm(plain).square()
+    return sq.sqrt()
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
                          ) -> List[torch.Tensor]:
     """optax's ``clip_by_global_norm``: ``g / norm * max_norm`` when the
-    norm reaches ``max_norm``, the gradients as they are below it."""
+    norm reaches ``max_norm``, the gradients as they are below it; each
+    rank's shards of FSDP's gradients (``local``)."""
     norm = float(global_norm(grads))
+    grads = [local(g) for g in grads]
     if norm >= max_norm:
         grads = torch._foreach_div(grads, norm)
         torch._foreach_mul_(grads, max_norm)
@@ -77,6 +98,14 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
 def _grads(params: Sequence[nn.Parameter]) -> List[torch.Tensor]:
     return [p.grad if p.grad is not None else torch.zeros_like(p)
             for p in params]
+
+
+def _like_param(state: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A state tensor of ``p``'s shape for the checkpoint: as it is, or
+    under FSDP a DTensor view of this rank's shard, split as ``p``."""
+    info = shard_info(p)
+    return state if info is None else sharded_like(state, p, info[0],
+                                                   p.shape)
 
 
 class AdamW:
@@ -97,16 +126,16 @@ class AdamW:
         self.weight_decay = weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
         self.count = 0
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(local(p)) for p in self.params]
+        self.nu = [torch.zeros_like(local(p)) for p in self.params]
 
     def named_state(self, names: Sequence[str]) -> Dict[str, torch.Tensor]:
         """The live state tensors by checkpoint key: ``adamw/mu/<name>``
         and ``adamw/nu/<name>`` for the parameter of each name."""
         out = {}
-        for name, mu, nu in zip(names, self.mu, self.nu):
-            out[f"adamw/mu/{name}"] = mu
-            out[f"adamw/nu/{name}"] = nu
+        for name, p, mu, nu in zip(names, self.params, self.mu, self.nu):
+            out[f"adamw/mu/{name}"] = _like_param(mu, p)
+            out[f"adamw/nu/{name}"] = _like_param(nu, p)
         return out
 
     @torch.no_grad()
@@ -126,10 +155,11 @@ class AdamW:
         upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, den)
         del den
+        params = [local(p) for p in self.params]
         if self.weight_decay:
-            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
+            torch._foreach_add_(upd, params, alpha=self.weight_decay)
         lr = warmup_constant_lr(self.count, self.lr, self.warmup_steps)
-        torch._foreach_add_(self.params, upd, alpha=-lr)
+        torch._foreach_add_(params, upd, alpha=-lr)
         self.count += 1
 
 
@@ -191,24 +221,33 @@ class Adafactor:
         self.weight_decay = weight_decay
         self.count = 0
         self.dims = [factored_dims(tuple(p.shape)) for p in self.params]
-        # per parameter: (v_row, v_col) where factored, else (v,)
+        # per parameter: (v_row, v_col) where factored, else (v,); under
+        # FSDP each of this rank's shard (a moment that averages over the
+        # sharded dim is whole on every rank)
         self.v: List[Tuple[torch.Tensor, ...]] = []
         for p, dims in zip(self.params, self.dims):
+            shard = local(p)
             if dims is None:
-                self.v.append((torch.zeros_like(p),))
+                self.v.append((torch.zeros_like(shard),))
             else:
                 d1, d0 = dims
-                self.v.append((p.new_zeros(_without(p.shape, d0)),
-                               p.new_zeros(_without(p.shape, d1))))
+                self.v.append((shard.new_zeros(_without(shard.shape, d0)),
+                               shard.new_zeros(_without(shard.shape, d1))))
 
     def named_state(self, names: Sequence[str]) -> Dict[str, torch.Tensor]:
         """The live state tensors by checkpoint key: ``adafactor/v_row/
         <name>`` and ``adafactor/v_col/<name>`` of a factored parameter,
         ``adafactor/v/<name>`` of any other."""
         out = {}
-        for name, v in zip(names, self.v):
-            keys = ("v",) if len(v) == 1 else ("v_row", "v_col")
-            for key, t in zip(keys, v):
+        for name, p, v, dims in zip(names, self.params, self.v, self.dims):
+            if dims is None:
+                out[f"adafactor/v/{name}"] = _like_param(v[0], p)
+                continue
+            info = shard_info(p)
+            for key, t, gone in zip(("v_row", "v_col"), v, dims[::-1]):
+                if info is not None and info[0] != gone:
+                    t = sharded_like(t, p, info[0] - (info[0] > gone),
+                                     _without(p.shape, gone))
                 out[f"adafactor/{key}/{name}"] = t
         return out
 
@@ -222,6 +261,8 @@ class Adafactor:
         keep, take, lr = (torch.tensor(x, dtype=torch.float32, device=device)
                           for x in (decay, np.float32(1) - decay, lr))
         for p, g, v, dims in zip(self.params, grads, self.v, self.dims):
+            info = shard_info(p)
+            sdim, group = info if info is not None else (None, None)
             g2 = g * g + ADAFACTOR_EPS
             if dims is None:
                 (v_full,) = v
@@ -230,19 +271,37 @@ class Adafactor:
             else:
                 d1, d0 = dims
                 v_row, v_col = v
-                v_row.copy_(keep * v_row + take * g2.mean(d0))
-                v_col.copy_(keep * v_col + take * g2.mean(d1))
-                row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                v_row.copy_(keep * v_row + take * _mean(g2, d0, sdim == d0,
+                                                        group, p.shape[d0]))
+                v_col.copy_(keep * v_col + take * _mean(g2, d1, sdim == d1,
+                                                        group, p.shape[d1]))
+                row_mean = _mean(v_row, d1 - 1 if d1 > d0 else d1,
+                                 sdim == d1, group, p.shape[d1],
+                                 keepdim=True)
                 u = g * (v_row / row_mean).rsqrt().unsqueeze(d0) \
                     * v_col.rsqrt().unsqueeze(d1)
             del g2
-            rms = u.pow(2).mean().sqrt()
+            rms = _mean(u.pow(2), None, sdim is not None, group,
+                        p.numel()).sqrt()
             u = lr * (u / torch.clamp_min(rms / ADAFACTOR_CLIPPING_THRESHOLD,
                                           1.0))
+            shard = local(p)
             if self.weight_decay:
-                u = u + self.weight_decay * p
-            p.sub_(u)
+                u = u + self.weight_decay * shard
+            shard.sub_(u)
         self.count += 1
+
+
+def _mean(t: torch.Tensor, dim: Optional[int], sharded: bool, group,
+          n: int, keepdim: bool = False) -> torch.Tensor:
+    """``t.mean(dim)`` (``dim`` None: of every element) of a tensor whose
+    reduced dim (any, for None) is split over ``group`` when ``sharded``:
+    the shards' sums all-reduced, over ``n``, the whole's count."""
+    if not sharded or dist.get_world_size(group) == 1:
+        return t.mean() if dim is None else t.mean(dim, keepdim=keepdim)
+    total = t.sum() if dim is None else t.sum(dim, keepdim=keepdim)
+    dist.all_reduce(total, group=group)
+    return total / n
 
 
 def make_optimizer(params: Sequence[nn.Parameter], lr: float = 5e-5,
@@ -284,6 +343,30 @@ class TrainState:
         self.optimizer = optimizer
         self.frozen = frozen
         self.step = 0
+        # over more than one rank (``data_parallel``): what a step calls
+        # (the model, or its DDP wrapper), the data group whose ranks
+        # average the metrics, and the parameters outside FSDP's shards
+        # whose gradients the step all-reduces
+        self.runner: nn.Module = model
+        self.group: Optional[dist.ProcessGroup] = None
+        self.replicated: List[nn.Parameter] = []
+
+    def sync_gradients(self) -> None:
+        """The mean over the data ranks of the gradients that neither DDP
+        nor FSDP reduces (``replicated``)."""
+        all_reduce_mean_([p.grad for p in self.replicated], self.group)
+
+    def mean_over_ranks(self, metrics: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """Each scalar metric's mean over the data ranks, in one
+        all-reduce: a rank's metrics are the means over its own rows."""
+        if self.group is None or dist.get_world_size(self.group) == 1:
+            return metrics
+        keys = sorted(metrics)
+        device = next(self.model.parameters()).device  # the group's
+        flat = torch.stack([metrics[k].float().to(device) for k in keys])
+        all_reduce_mean_([flat], self.group)
+        return dict(zip(keys, flat.unbind()))
 
 
 def create_train_state(model: nn.Module, lr: float = 5e-5,
@@ -382,18 +465,20 @@ def make_train_step(loss: Optional[RDLoss] = None, grad_accum: int = 1,
         sums: Dict[str, torch.Tensor] = {}
         for i in range(grad_accum):
             rows = slice(i * micro, (i + 1) * micro)
-            total, metrics = loss_fn(model, image[rows], state.step,
+            total, metrics = loss_fn(state.runner, image[rows], state.step,
                                      None if noise is None else noise[rows])
             total.backward()
             for key, value in metrics.items():
                 value = value.detach()
                 sums[key] = sums[key] + value if key in sums else value
             del total, metrics
+        state.sync_gradients()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         if grad_accum > 1:
             inv = float(np.float32(1.0 / grad_accum))
-            torch._foreach_mul_(grads, inv)
+            torch._foreach_mul_([local(g) for g in grads], inv)
             sums = {k: v * inv for k, v in sums.items()}
+        sums = state.mean_over_ranks(sums)
         sums["grad_norm"] = global_norm(grads)
         state.optimizer.step()
         state.step += 1

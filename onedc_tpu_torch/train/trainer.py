@@ -21,9 +21,21 @@ LPIPS file (``nn/lpips.py``), the avg-pool VGG of the reference's loss,
 held frozen beside the model. ``frozen`` defaults to ``[vae, vqgan]``
 with the Codeformer, else ``[vae]``.
 
+Over several processes (``torchrun --nproc-per-node N -m
+onedc_tpu_torch.train.trainer ...``; ``main`` joins the group from
+torchrun's environment, and ``multihost`` asks for the same) the trainer
+builds a mesh over the world (``parallel/mesh.py``). ``fsdp: true``
+shards the trainable parameters, their gradients and the optimizer's
+state over its ``data`` axis (``parallel/fsdp.py``; on one device a mesh
+of one process); ``fsdp: false`` with more than one rank wraps the model
+in DDP. Every rank draws the same global batch from the seeded loader,
+rounded to a multiple of ``data x grad_accum`` (JAX :231-241), and the
+codec's noise for all of it, and keeps its rows (``rank_rows``): N ranks
+compute what one does. Metrics are averaged over the ranks, eval metrics
+too (``reduce_mean_across_hosts``); only process 0 writes.
+
 Differences, by design or not yet ported:
-- one device, no FSDP or multi-host, the local-folder loader only
-  (``loader: grain`` raises); each raises where the config asks for it;
+- the local-folder loader only (``loader: grain`` raises);
 - ``batches=`` (an iterable of numpy ``{"image": (B, H, W, 3)}`` in
   [-1, 1]) stands in for ``train_data``;
 - the noise of the codec's bit estimate comes from a ``torch.Generator``
@@ -61,6 +73,10 @@ from ..data.datasets import DataLoader, ImageFolderDataset, cycle
 from ..models.onedc import OneDC, resolve_device
 from ..nn.lpips import load_lpips, nhwc_metric
 from ..nn.vae import hwio_conv_weights
+from ..parallel.distributed import initialize, is_main_process, \
+    reduce_mean_across_hosts, world_size
+from ..parallel.fsdp import shard_model
+from ..parallel.mesh import DATA_AXIS, axis_size, make_mesh, rank_rows
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import AvgDict, get_logger, make_writer
 from ..utils.numerics import pinned
@@ -70,21 +86,15 @@ from .step import create_train_state, make_train_step, split_frozen
 
 log = get_logger("onedc_tpu_torch.train")
 
-# what the port's trainer does not run yet, each with where it stands in
-# ROADMAP.md's Queue 1
-_NOT_PORTED = {
-    "multihost": "multihost: multi-host training is not ported yet "
-                 "(ROADMAP.md, Queue 1, multi-GPU)",
-    "fsdp": "fsdp: multi-GPU training is not ported yet (ROADMAP.md, "
-            "Queue 1, multi-GPU)",
-}
-
 
 def save_config_snapshot(cfg: Mapping, run_dir) -> None:
     """The resolved config as ``<run_dir>/config.yaml``: lists for tuples,
     ``<TypeName>`` for any value YAML cannot hold (an in-memory state dict
-    given as a warm start)."""
+    given as a warm start). Process 0 writes it."""
     import yaml
+
+    if not is_main_process():
+        return
 
     def clean(o):
         if isinstance(o, Mapping):
@@ -137,9 +147,6 @@ class Trainer:
         ``seed``, then the config's warm starts. ``device``: None takes
         the config's ``device``, and with neither the card."""
         self.cfg = cfg
-        for key in ("multihost", "fsdp"):
-            if cfg.get(key, False):
-                raise NotImplementedError(_NOT_PORTED[key])
         if cfg.get("loader", "simple") != "simple":
             raise NotImplementedError(
                 f"loader: {cfg['loader']}: only the local-folder loader is "
@@ -179,6 +186,8 @@ class Trainer:
         self.frozen = tuple(cfg.get("frozen", default_frozen))
         if "vae" not in self.frozen:
             raise ValueError("the VAE must stay frozen")
+        self.mesh, self.runner, self.replicated = data_parallel(
+            model, self.frozen, self.device, bool(cfg.get("fsdp", False)))
         self.state = self._fresh_state(float(cfg.get("lr", 5e-5)))
         self.trainable_names = [n for n, _ in split_frozen(model,
                                                            self.frozen)[0]]
@@ -238,21 +247,24 @@ class Trainer:
 
     def _fresh_state(self, lr: float):
         cfg = self.cfg
-        return create_train_state(
+        state = create_train_state(
             self.model, lr=lr, warmup_steps=int(cfg.get("warmup_steps", 500)),
             grad_clip=float(cfg.get("grad_clip", 5.0)), frozen=self.frozen,
             optimizer=cfg.get("optimizer", "adamw"))
+        return over_ranks(state, self.mesh, self.runner, self.replicated)
 
     # -- one training step ---------------------------------------------------
 
     def _prepare_batch(self, batch, step: int) -> Dict[str, torch.Tensor]:
-        """The step's resolution and batch size (``MultiResolutionCrop.
-        pick``; the size rounded down to a multiple of ``grad_accum``, at
-        least one micro-batch of one image), then one random crop per image
-        from a generator seeded by the step."""
+        """The step's resolution and global batch size
+        (``MultiResolutionCrop.pick``; the size rounded down to a multiple
+        of ``data x grad_accum``, at least one image per rank and
+        micro-batch), then one random crop per image from a generator
+        seeded by the step."""
         res, scale = self.crop.pick(step)
+        n_data = axis_size(self.mesh) * self.grad_accum
         bs = max(1, int(round(self.batch_size * scale)))
-        bs = max(self.grad_accum, bs // self.grad_accum * self.grad_accum)
+        bs = max(n_data, bs // n_data * n_data)
         rng = np.random.default_rng(step)
         imgs = np.stack([random_crop(im, res, rng)
                          for im in batch["image"][:bs]])
@@ -271,9 +283,12 @@ class Trainer:
         if self.train_iter is None:
             raise ValueError("no training data: set train_data (an image "
                              "folder) or pass batches")
-        batch = self._prepare_batch(next(self.train_iter), step)
-        return self.step_fn(self.state, batch,
-                            generator=self.noise_generator(step))
+        image = self._prepare_batch(next(self.train_iter), step)["image"]
+        # the global batch's noise, then this rank's rows of both
+        noise = self.model.bit_noise(image, self.noise_generator(step))
+        rows = rank_rows(image.shape[0], self.mesh, self.grad_accum)
+        return self.step_fn(self.state, {"image": image[rows]},
+                            noise=noise[rows])
 
     # -- eval epoch ----------------------------------------------------------
 
@@ -320,7 +335,7 @@ class Trainer:
             # break after the image, so a capped epoch reads no extra one
             if max_images is not None and i + 1 >= max_images:
                 break
-        means = avg.mean()
+        means = reduce_mean_across_hosts(avg.mean())
         self.writer.log_dict(means, step, prefix="eval")
         return means
 
@@ -348,10 +363,11 @@ class Trainer:
         tensors, meta = self.checkpoint_state()
         t0 = time.perf_counter()
         path = self.ckpt.save(tensors, step, metric, meta)
-        nbytes = sum(f.stat().st_size for f in path.iterdir())
-        self.writer.log_dict({"bytes": nbytes,
-                              "save_s": time.perf_counter() - t0}, step,
-                             prefix="checkpoint")
+        if is_main_process():
+            nbytes = sum(f.stat().st_size for f in path.iterdir())
+            self.writer.log_dict({"bytes": nbytes,
+                                  "save_s": time.perf_counter() - t0}, step,
+                                 prefix="checkpoint")
         return path
 
     # -- main loop -----------------------------------------------------------
@@ -430,11 +446,45 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--resume", action="store_true")
     args, overrides = parser.parse_known_args(argv)
     cfg = load_config(args.config, overrides)
+    initialize()  # torchrun's group, if any (``multihost`` asks the same)
     trainer = Trainer(cfg)
     if args.resume:
         trainer.resume()
     trainer.train()
     return trainer
+
+
+def data_parallel(model: torch.nn.Module, frozen, device: torch.device,
+                  fsdp: bool, forward_methods=(), ddp: bool = True):
+    """(mesh, runner, replicated) of a model trained over the process
+    group: no mesh in one process without ``fsdp``; with ``fsdp``, the
+    model sharded in place (``parallel/fsdp.py:shard_model``) and the
+    parameters it leaves replicated; else with more than one rank the
+    model's DDP wrapper as the runner (``find_unused_parameters``: the
+    frozen encoders run without autograd), or with ``ddp`` false the model
+    itself (the caller all-reduces its gradients)."""
+    if not fsdp and world_size() == 1:
+        return None, model, []
+    mesh = make_mesh(device.type)
+    if fsdp:
+        return mesh, model, shard_model(model, mesh, frozen,
+                                        forward_methods)
+    if not ddp:
+        return mesh, model, []
+    from torch.nn.parallel import DistributedDataParallel
+
+    ids = [torch.cuda.current_device()] if device.type == "cuda" else None
+    return mesh, DistributedDataParallel(
+        model, device_ids=ids, process_group=mesh[DATA_AXIS].get_group(),
+        find_unused_parameters=True), []
+
+
+def over_ranks(state, mesh, runner, replicated):
+    """``state`` with its data-parallel fields set (``TrainState``)."""
+    if mesh is not None:
+        state.runner, state.replicated = runner, replicated
+        state.group = mesh[DATA_AXIS].get_group()
+    return state
 
 
 if __name__ == "__main__":

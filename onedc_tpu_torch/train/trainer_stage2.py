@@ -23,18 +23,30 @@ runs). Two optimizers, two turns:
   frozen, on the generator's latents detached.
 
 JAX differentiates only the state being updated. Here each turn takes the
-gradients of its own trainable parameters alone
-(``torch.autograd.backward(..., inputs=...)``): the generator turn's
-gen-cls logit passes through the fake UNet's down path and the head, and
-the guidance turn sees detached latents, so neither fills the other's
+gradients of its own trainable parameters alone: the generator turn's
+gen-cls logit passes through the fake UNet's down path and the head, so
+the critic's trainable parameters stop requiring gradients for that turn,
+and the guidance turn sees detached latents; neither fills the other's
 ``.grad``. The frozen parts (``vae``, ``codec``, ``real_unet``) hold no
-autograd record at all. ``gradient_checkpointing`` (default true, as JAX)
+autograd record at all. (``torch.autograd.backward(..., inputs=...)``
+would name the parameters that a module holds; under FSDP the graph holds
+the gathered copies that FSDP swaps in for each forward, so those inputs
+would never receive a gradient.)
+
+Over several processes, as the stage-I trainer (``train/trainer.py``):
+``fsdp: true`` shards both states (JAX :228-238: the generator without
+``vae`` / ``codec``, the critic without ``real_unet``), else more than
+one rank all-reduces each turn's gradients (the turns enter the critic
+through its methods, which DDP's wrapper would not see). Every rank
+draws the global batch, the codec's noise and both turns' t and noise
+draws for all of it, and keeps its rows.
+
+``gradient_checkpointing`` (default true, as JAX)
 rematerialises the OneDC forward of the generator turn and the guidance
 forward (``utils/remat.py``); ``grad_accum`` runs micro-batches of
 consecutive rows into one update, as stage I.
 
 Differences, by design or not yet ported:
-- one device (``fsdp`` and ``multihost`` raise, ROADMAP Queue 1);
 - the random numbers come from ``torch.Generator``s, two per step (the
   generator turn's codec noise and DM / GAN draws, the guidance turn's
   draws) seeded from ``seed + 2`` and the step, as JAX folds the step into
@@ -55,7 +67,8 @@ from __future__ import annotations
 import argparse
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Optional, Sequence, \
+    Tuple
 
 import numpy as np
 import torch
@@ -67,6 +80,10 @@ from ..models.onedc import OneDC, resolve_device
 from ..nn.lpips import load_lpips, nhwc_metric
 from ..nn.text_encoder import TextEncoder
 from ..nn.vae import hwio_conv_weights
+from ..parallel.distributed import initialize, is_main_process, \
+    reduce_mean_across_hosts
+from ..parallel.fsdp import local
+from ..parallel.mesh import axis_size, rank_rows
 from ..utils.checkpoint import STATE_FILE, CheckpointManager
 from ..utils.logging import AvgDict, get_logger, make_writer
 from ..utils.numerics import pinned
@@ -74,7 +91,8 @@ from ..utils.preempt import PreemptionGuard
 from ..utils.remat import rematerialized
 from .losses import RDLoss
 from .step import TrainState, create_stage2_states, split_frozen
-from .trainer import _NOT_PORTED, load_part_ckpts, save_config_snapshot
+from .trainer import data_parallel, load_part_ckpts, over_ranks, \
+    save_config_snapshot
 
 log = get_logger("onedc_tpu_torch.train2")
 
@@ -86,32 +104,41 @@ def _rows(draws: Mapping[str, torch.Tensor], rows: slice):
 
 
 def _backward_mean(loss_fn: Callable[[slice], Tuple[torch.Tensor, Dict]],
-                   state: TrainState, batch: int, grad_accum: int
+                   state: TrainState, batch: int, grad_accum: int,
+                   held: Sequence[torch.nn.Parameter] = ()
                    ) -> Dict[str, torch.Tensor]:
     """The accumulation loop of both turns: ``loss_fn(rows)`` ->
     (loss, metrics) per micro-batch of consecutive rows, the gradients of
-    ``state``'s trainable parameters only summed into their ``.grad`` and
-    scaled by f32(1/N), the metrics averaged alike; then one update."""
+    ``state``'s trainable parameters summed into their ``.grad`` (``held``,
+    the other turn's trainable parameters that the loss reaches, require no
+    gradient meanwhile), reduced over the ranks and scaled by f32(1/N),
+    the metrics averaged alike; then one update."""
     if batch % grad_accum:
         raise ValueError(f"batch {batch} not divisible by grad_accum "
                          f"{grad_accum}")
     params = state.optimizer.params
     for p in params:
         p.grad = None
+    for p in held:
+        p.requires_grad_(False)
     micro = batch // grad_accum
     sums: Dict[str, torch.Tensor] = {}
     for i in range(grad_accum):
         loss, metrics = loss_fn(slice(i * micro, (i + 1) * micro))
-        torch.autograd.backward(loss, inputs=params)
+        loss.backward()
         for key, value in metrics.items():
             value = value.detach()
             sums[key] = sums[key] + value if key in sums else value
         del loss, metrics
+    for p in held:
+        p.requires_grad_(True)
+    state.sync_gradients()
     if grad_accum > 1:
         inv = float(np.float32(1.0 / grad_accum))
-        torch._foreach_mul_([p.grad for p in params if p.grad is not None],
-                            inv)
+        torch._foreach_mul_([local(p.grad) for p in params
+                             if p.grad is not None], inv)
         sums = {k: v * inv for k, v in sums.items()}
+    sums = state.mean_over_ranks(sums)
     state.optimizer.step()
     state.step += 1
     return sums
@@ -172,7 +199,8 @@ def make_generator_step(rd_loss: Optional[RDLoss] = None,
                           "gen_cls_loss": gen_cls, "pix": pix_dict["pix"],
                           "bpp": enc_dict["bpp_hard_y"]}
 
-        sums = _backward_mean(loss_fn, gen_state, b, grad_accum)
+        critic = [p for p in guidance.parameters() if p.requires_grad]
+        sums = _backward_mean(loss_fn, gen_state, b, grad_accum, critic)
         aux = {"fake_latents": torch.cat(fake),
                "real_latents": torch.cat(real)}
         return {k: float(v) for k, v in sums.items()}, aux
@@ -241,9 +269,6 @@ class Stage2Trainer:
         ``{"image": (B, H, W, 3) numpy in [-1, 1], "caption": [str]}``)
         stands in for ``train_data``."""
         self.cfg = cfg
-        for key in ("multihost", "fsdp"):
-            if cfg.get(key, False):
-                raise NotImplementedError(_NOT_PORTED[key])
         if not cfg.get("lpips_weights"):
             if not cfg.get("allow_no_lpips", False):
                 raise ValueError(
@@ -276,10 +301,25 @@ class Stage2Trainer:
             guidance = guidance.to(memory_format=torch.channels_last)
         hwio_conv_weights(onedc.vae)  # the VAE is frozen
         self.onedc, self.guidance = onedc, guidance
+        # sharded before the optimizers take the parameters (FSDP swaps
+        # them for sharded ones); the frozen sets are create_stage2_states'
+        fsdp = bool(cfg.get("fsdp", False))
+        gen_dp = data_parallel(onedc, ("vae", "codec"), self.device, fsdp,
+                               ("training_latents",), ddp=False)
+        guid_dp = data_parallel(guidance, ("real_unet",), self.device, fsdp,
+                                ("generator_forward", "guidance_forward"),
+                                ddp=False)
+        self.mesh = gen_dp[0]
         self.gen_state, self.guid_state = create_stage2_states(
             onedc, guidance, gen_lr=float(cfg.get("gen_lr", 1e-6)),
             guid_lr=float(cfg.get("guid_lr", 1e-6)),
             optimizer=cfg.get("optimizer", "adamw"))
+        for state, (mesh, _, replicated) in ((self.gen_state, gen_dp),
+                                             (self.guid_state, guid_dp)):
+            if mesh is not None and not fsdp:
+                # no DDP wrapper: every trainable gradient is all-reduced
+                replicated = [p for p in state.optimizer.params]
+            over_ranks(state, mesh, state.model, replicated)
         self.names = {tag: [n for n, _ in split_frozen(st.model,
                                                         st.frozen)[0]]
                       for tag, st in (("gen", self.gen_state),
@@ -368,24 +408,36 @@ class Stage2Trainer:
             raise ValueError("no training data: set train_data (an image "
                              "folder) or pass batches")
         batch = next(self.train_iter)
-        imgs, captions = self.round_batch(np.asarray(batch["image"]),
-                                          batch["caption"], self.grad_accum)
+        imgs, captions = self.round_batch(
+            np.asarray(batch["image"]), batch["caption"],
+            axis_size(self.mesh) * self.grad_accum)
         image = torch.from_numpy(np.ascontiguousarray(
             imgs, np.float32)).to(self.device)
         text_emb, uncond = self.embed(captions)
         g_gen, g_guid = self.step_generators(step)
+        # the global batch's draws, then this rank's rows of everything
+        b, h, w, _ = image.shape
+        rows = rank_rows(b, self.mesh, self.grad_accum)
+        noise = self.onedc.bit_noise(image, g_gen)
         if step % self.update_ratio == 0:
-            gmet, aux = self.gen_step(self.gen_state, self.guidance,
-                                      {"image": image}, text_emb, uncond,
-                                      generator=g_gen)
+            draws = self.guidance.generator_draws(
+                image.new_empty((b, self.onedc.vae_ch, h // 8, w // 8)),
+                g_gen)
+            gmet, aux = self.gen_step(
+                self.gen_state, self.guidance, {"image": image[rows]},
+                text_emb[rows], uncond[rows], noise=noise[rows],
+                draws=_rows(draws, rows))
         else:
-            real, fake = self.onedc.training_latents(
-                image, self.onedc.bit_noise(image, g_gen))
+            real, fake = self.onedc.training_latents(image[rows],
+                                                     noise[rows])
             aux = {"fake_latents": fake, "real_latents": real}
             gmet = {}
-        qmet = self.guid_step(self.guid_state, aux["fake_latents"],
-                              aux["real_latents"], text_emb, uncond,
-                              generator=g_guid)
+        fake, real = aux["fake_latents"], aux["real_latents"]
+        draws = self.guidance.guidance_draws(
+            fake.new_empty((b,) + fake.shape[1:]),
+            real.new_empty((b,) + real.shape[1:]), g_guid)
+        qmet = self.guid_step(self.guid_state, fake, real, text_emb[rows],
+                              uncond[rows], draws=_rows(draws, rows))
         return {**gmet, **qmet}
 
     @pinned
@@ -414,7 +466,7 @@ class Stage2Trainer:
                 self.writer.log_image("eval/gt", img[0].cpu().numpy(), step)
             if max_images is not None and i + 1 >= max_images:
                 break
-        means = avg.mean()
+        means = reduce_mean_across_hosts(avg.mean())
         self.writer.log_dict(means, step, prefix="eval2")
         log.info("eval step %d: %s", step,
                  {k: round(v, 5) for k, v in means.items()})
@@ -446,10 +498,11 @@ class Stage2Trainer:
         tensors, meta = self.checkpoint_state()
         t0 = time.perf_counter()
         path = self.ckpt.save(tensors, step, metric, meta)
-        nbytes = sum(f.stat().st_size for f in path.iterdir())
-        self.writer.log_dict({"bytes": nbytes,
-                              "save_s": time.perf_counter() - t0}, step,
-                             prefix="checkpoint")
+        if is_main_process():
+            nbytes = sum(f.stat().st_size for f in path.iterdir())
+            self.writer.log_dict({"bytes": nbytes,
+                                  "save_s": time.perf_counter() - t0}, step,
+                                 prefix="checkpoint")
         return path
 
     def train(self) -> None:
@@ -524,6 +577,7 @@ def main(argv=None) -> Stage2Trainer:
     parser.add_argument("--resume", action="store_true")
     args, overrides = parser.parse_known_args(argv)
     cfg = load_config(args.config, overrides)
+    initialize()  # torchrun's group, if any (``multihost`` asks the same)
     trainer = Stage2Trainer(cfg)
     if args.resume:
         trainer.resume()

@@ -49,7 +49,7 @@ import io
 import json
 import os
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -194,6 +194,11 @@ def serialize(ep: torch.export.ExportedProgram) -> bytes:
 # the staged serving bundle: the pipelined serving path as artifacts
 # ---------------------------------------------------------------------------
 
+BUNDLE_PROGRAMS = ("begin",) + tuple(
+    f"update{s}{x}" for s in range(4) for x in ("", "_i8")) + (
+    "x0", "vae", "decode", "encode")
+
+
 def _layout(t: torch.Tensor) -> dict:
     """A tensor's dtype, shape and, where not contiguous, the order of its
     dims from the outermost in memory (``torch.empty_permuted``'s
@@ -206,20 +211,28 @@ def _layout(t: torch.Tensor) -> dict:
     return out
 
 
-def export_serving_bundle(runtime, height: int, width: int, batch: int = 8
-                          ) -> dict:
+def export_serving_bundle(runtime, height: int, width: int, batch: int = 8,
+                          programs: Optional[Sequence[str]] = None) -> dict:
     """Export the staged programs that the pipelined schedule dispatches
     (``serving/pipeline.py``): begin, update0..3 (int16 and int8 symbol
     signatures: the schedule narrows the symbols of a chunk that fit),
     x0, vae, plus the fused decode and the encode device half. A serving
     process pairs them with the host rANS loop (``ServingDecoder``) and
-    the host container writer (``ServingEncoder``). Returns {name: bytes}
-    and "meta" (shapes, host-loop constants, the weights' layouts, export
-    seconds per program)."""
+    the host container writer (``ServingEncoder``). ``programs``: the
+    names to export, every one of BUNDLE_PROGRAMS by default. The prior
+    programs (begin, update*) are traced outside the quant mode, so they
+    are the same in every mode's bundle. Returns {name: bytes} and "meta"
+    (shapes, host-loop constants, the weights' layouts, export seconds per
+    program)."""
     _check_padded(height, width)
     if runtime.z_only:
         raise ValueError("the serving bundle is the lambda model's; export "
                          "the z-only decode with export_decode_z_only")
+    wanted = set(BUNDLE_PROGRAMS if programs is None else programs)
+    unknown = wanted - set(BUNDLE_PROGRAMS)
+    if unknown:
+        raise ValueError(f"no bundle program {sorted(unknown)}; the bundle's "
+                         f"programs are {BUNDLE_PROGRAMS}")
     model = runtime.model
     zi = torch.zeros((batch, height // 64, width // 64), dtype=torch.int32,
                      device=runtime.device)
@@ -229,6 +242,8 @@ def export_serving_bundle(runtime, height: int, width: int, batch: int = 8
     arts: Dict[str, object] = {}
 
     def add(name, make):
+        if name not in wanted:
+            return
         t0 = time.perf_counter()
         arts[name] = serialize(make())
         seconds[name] = time.perf_counter() - t0
@@ -249,13 +264,14 @@ def export_serving_bundle(runtime, height: int, width: int, batch: int = 8
         runtime, runtime.quantized(
             lambda m, yh, zs: m.decode_device_x0(yh, zs)),
         PROGRAM_PREFIXES["x0"], (st["y_hat"], st["z_semantic"])))
-    with torch.no_grad():
-        x0 = model.decode_device_x0(st["y_hat"], st["z_semantic"])
     large = runtime.use_large_vae
-    add("vae", lambda: export_program(
-        runtime, runtime.quantized(
-            lambda m, x: m.decode_device_vae(x, large)),
-        _vae_prefixes(runtime), (x0,)))
+    if "vae" in wanted:
+        with torch.no_grad():
+            x0 = model.decode_device_x0(st["y_hat"], st["z_semantic"])
+        add("vae", lambda: export_program(
+            runtime, runtime.quantized(
+                lambda m, x: m.decode_device_vae(x, large)),
+            _vae_prefixes(runtime), (x0,)))
     add("decode", lambda: export_decode(runtime, height, width, batch))
     add("encode", lambda: export_encode(runtime, height, width, batch))
 

@@ -118,13 +118,32 @@ class RunWriter:
         """Nothing to do: every call writes and closes its file."""
 
 
-def make_writer(run_dir, wandb_project: Optional[str] = None) -> RunWriter:
-    """The trainer's writer into ``run_dir``; a wandb project raises (the
-    port has no such sink)."""
+class NullWriter:
+    """The writer of a process other than process 0: writes nothing (the
+    reference's ``accelerator.is_main_process`` gate)."""
+
+    def log_dict(self, metrics, step, prefix=""):
+        pass
+
+    def log_image(self, tag, image, step):
+        pass
+
+    def log_config(self, config, step=0):
+        pass
+
+    def flush(self):
+        pass
+
+
+def make_writer(run_dir, wandb_project: Optional[str] = None):
+    """The trainer's writer into ``run_dir`` on process 0, a
+    ``NullWriter`` on the others (JAX ``make_writer`` gates itself the
+    same way); a wandb project raises (the port has no such sink)."""
     if wandb_project:
         raise ValueError(f"wandb_project={wandb_project!r}: the port logs "
                          f"to metrics.jsonl and PNG files only; unset it")
-    return RunWriter(run_dir)
+    from ..parallel.distributed import is_main_process
+    return RunWriter(run_dir) if is_main_process() else NullWriter()
 
 
 def read_metrics(run_dir) -> List[Dict[str, float]]:

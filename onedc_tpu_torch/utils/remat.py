@@ -12,6 +12,14 @@ layers, the counterpart of JAX's unbatched dots) are saved, every other
 op is recomputed, ``aten.convolution``, ``aten.bmm`` and the hand kernels
 (K1 f32 and K2 f32 launch again in the backward) included.
 
+Under FSDP (``parallel/fsdp.py``) the units inside the region gather
+their parameters again in the recompute, and FSDP's hooks mark their work
+with profiler annotations (``record_function``), of which the recompute
+runs another number than the forward did. The selective checkpoint caches
+ops by their count and would fail on them, so the annotation ops join
+``SAC_IGNORED_OPS``, the ops it runs uncached (annotations compute
+nothing).
+
 Checkpointing restores the global RNG state only, never an explicit
 ``torch.Generator``: the codec's U(-0.5, 0.5) noise must be drawn before
 the region and passed in, or the recompute draws other noise and the
@@ -24,6 +32,7 @@ import functools
 
 import torch
 from torch.utils.checkpoint import (
+    SAC_IGNORED_OPS,
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
@@ -31,6 +40,10 @@ from torch.utils.checkpoint import (
 
 SAVED_OPS = frozenset({torch.ops.aten.mm.default,
                        torch.ops.aten.addmm.default})
+SAC_IGNORED_OPS.update({torch.ops.profiler._record_function_enter_new.default,
+                        torch.ops.profiler._record_function_exit.default,
+                        torch.ops.profiler._record_function_exit.
+                        _RecordFunction})
 
 
 def _policy(ctx, op, *args, **kwargs):

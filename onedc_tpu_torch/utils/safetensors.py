@@ -66,43 +66,75 @@ def _as_tensor(value: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
     return tensor_from_numpy(np.ascontiguousarray(value))
 
 
+class SafetensorsWriter:
+    """A safetensors file written tensor by tensor: the header from
+    ``like`` (``{name: array or tensor}``, read for its dtypes and shapes
+    only) and ``metadata`` when opened, then ``write`` for each name in
+    ``names`` (name order). Tensors on the card are copied to the host one
+    at a time, as they are written: a state of many GB never lies on the
+    host whole. Raises ValueError for a dtype the format has no name for,
+    a tensor written out of order, or one left unwritten."""
+
+    def __init__(self, like: Mapping[str, Any], path,
+                 metadata: Optional[Mapping[str, str]] = None):
+        offset = 0
+        header: Dict[str, Any] = {}
+        if metadata:
+            header["__metadata__"] = {str(k): str(v) for k, v in
+                                      metadata.items()}
+        self.names = sorted(like)
+        for name in self.names:
+            t = like[name]
+            dtype = t.dtype if isinstance(t, torch.Tensor) else \
+                torch.from_numpy(np.empty(0, t.dtype)).dtype
+            if dtype not in _NAMES:
+                raise ValueError(f"safetensors: tensor {name!r} has dtype "
+                                 f"{dtype}, which the format cannot hold")
+            numel = int(np.prod(t.shape, dtype=np.int64))
+            nbytes = numel * torch.empty((), dtype=dtype).element_size()
+            header[name] = {"dtype": _NAMES[dtype], "shape": list(t.shape),
+                            "data_offsets": [offset, offset + nbytes]}
+            offset += nbytes
+        self._next = 0
+        blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
+        blob += b" " * (-(8 + len(blob)) % _ALIGN)
+        self._f = open(path, "wb")
+        self._f.write(struct.pack("<Q", len(blob)))
+        self._f.write(blob)
+
+    def write(self, name: str, value: Union[np.ndarray, torch.Tensor]
+              ) -> None:
+        want = (self.names[self._next] if self._next < len(self.names)
+                else None)
+        if name != want:
+            raise ValueError(f"safetensors: {name!r} written where "
+                             f"{want!r} is next")
+        t = _as_tensor(value)
+        if t.numel():
+            # raw bytes without a copy: numpy has no bfloat16, so go
+            # through a same-width integer view
+            self._f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+        self._next += 1
+
+    def __enter__(self) -> "SafetensorsWriter":
+        return self
+
+    def __exit__(self, kind, *_) -> None:
+        self._f.close()
+        if kind is None and self._next != len(self.names):
+            raise ValueError(f"safetensors: {self.names[self._next]!r} "
+                             f"and after it never written")
+
+
 def save_safetensors(tensors: Mapping[str, Union[np.ndarray, torch.Tensor]],
                      path, metadata: Optional[Mapping[str, str]] = None
                      ) -> None:
     """Write ``{name: array or tensor}`` to ``path``, tensors in name
-    order, with ``metadata`` (strings) as the header's ``__metadata__``.
-    Tensors on the card are copied to the host one at a time, as they are
-    written: a state of many GB never lies on the host whole. Raises
-    ValueError for a dtype the format has no name for."""
-    offset = 0
-    header: Dict[str, Any] = {}
-    if metadata:
-        header["__metadata__"] = {str(k): str(v) for k, v in
-                                  metadata.items()}
-    names = sorted(tensors)
-    for name in names:
-        t = tensors[name]
-        dtype = t.dtype if isinstance(t, torch.Tensor) else \
-            torch.from_numpy(np.empty(0, t.dtype)).dtype
-        if dtype not in _NAMES:
-            raise ValueError(f"safetensors: tensor {name!r} has dtype "
-                             f"{dtype}, which the format cannot hold")
-        numel = int(np.prod(t.shape, dtype=np.int64))
-        nbytes = numel * torch.empty((), dtype=dtype).element_size()
-        header[name] = {"dtype": _NAMES[dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + nbytes]}
-        offset += nbytes
-    blob = json.dumps(header, separators=(",", ":")).encode("utf-8")
-    blob += b" " * (-(8 + len(blob)) % _ALIGN)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(blob)))
-        f.write(blob)
-        for name in names:
-            t = _as_tensor(tensors[name])
-            if t.numel():
-                # raw bytes without a copy: numpy has no bfloat16, so go
-                # through a same-width integer view
-                f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+    order, with ``metadata`` (strings) as the header's ``__metadata__``
+    (``SafetensorsWriter``)."""
+    with SafetensorsWriter(tensors, path, metadata) as writer:
+        for name in writer.names:
+            writer.write(name, tensors[name])
 
 
 def _read_header(f, path) -> Tuple[int, Dict[str, Any]]:

@@ -45,13 +45,18 @@ def _recorded_launches(monkeypatch):
         k2[(*x.shape, w.shape[3])] += 1
         return x.new_empty((*x.shape[:3], w.shape[3]))
 
-    def attend(q, k, v, scale=None):  # (B, N, H, D)
-        if attention.can_flash(q.shape[1], k.shape[1]):
-            k1[tuple(q.shape)] += 1
+    def attend(q, k, v, scale=None, route_n=None):  # (B, N, H, D)
+        # a spatial band's queries (route_n: the image's) against every
+        # band's keys record as (B, N, M, H, D)
+        if attention.can_flash(route_n or q.shape[1], k.shape[1]):
+            b, n, h, d = q.shape
+            k1[(b, n, h, d) if route_n is None else
+               (b, n, k.shape[1], h, d)] += 1
         return torch.empty_like(q)
 
-    def attend_bhnd(q, k, v, scale=None):  # (B, H, N, D)
-        attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    def attend_bhnd(q, k, v, scale=None, route_n=None):  # (B, H, N, D)
+        attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               route_n=route_n)
         return torch.empty_like(q)
 
     monkeypatch.setattr(vae, "affine_silu_conv3x3", conv)
@@ -301,13 +306,16 @@ def test_chip_smoke_trains_with_lpips(tmp_path):
 
 def test_chip_smoke_quality_tables():
     """The quality phase's launches: per image one encode and one decode,
-    for each of the sweep's two points; and the kernels line reads the
-    phase's K1 and K2 launches under ``quality``."""
+    for each of the sweep's two points (over QUALITY_SIZES, half the
+    Kodak-sized set); and the kernels line reads the phase's
+    K1 and K2 launches under ``quality``."""
     import inspect
 
     import chip_smoke as cs
 
     assert cs.quality_launches(cs.SERVING_SIZES) == (240, 2304)
+    assert cs.QUALITY_SIZES == cs.SERVING_SIZES[:12]
+    assert cs.quality_launches(cs.QUALITY_SIZES) == (120, 1152)
     assert cs.quality_launches([(768, 768)], points=1) == (12, 48)
     source = inspect.getsource(cs.main)
     assert '"quality": quality["K1"]' in source
@@ -442,8 +450,8 @@ def test_chip_smoke_stage1_phase_runs_the_yaml(tmp_path):
     assert "gradient_checkpointing" not in cfg
     assert (cfg["codeformer_loss_weight"], cfg["codeformer_mse_weight"]) \
         == (1e-3, 1e-2)
-    assert sorted(cs.STAGE1_OVERRIDES) == ["batch_scales", "fsdp",
-                                           "resolutions"]
+    assert sorted(cs.STAGE1_OVERRIDES) == ["batch_scales", "resolutions"]
+    assert cfg["fsdp"] is True
     crop = MultiResolutionCrop(cfg["resolutions"], cfg["batch_scales"])
     picks = [crop.pick(s) for s in range(cs.STAGE1_STEPS)]
     assert [r for r, _ in picks].count(512) == 3
@@ -526,3 +534,45 @@ def test_chip_smoke_stage2_tables(monkeypatch):
                       "train_stage2.yaml", {})
     assert (cfg["batch_size"], cfg["dfake_gen_update_ratio"]) == (4, 10)
     assert "optimizer" not in cfg and "gradient_checkpointing" not in cfg
+
+
+def test_chip_smoke_spatial_tables(monkeypatch):
+    """The spatial phase's tables: the full-width z-only decode split over
+    SPATIAL_BANDS bands on meta tensors (a band whose collectives return
+    meta tensors of the gathered shapes): at 768x768 each band launches K1
+    at the "spatial768" shapes (its queries against every band's keys) and
+    K2 on its rows plus one row of its neighbour, as many launches as the
+    single decode; one rank of the data axis launches ``data_mesh_
+    launches``: one encode of its rows and one pipelined decode."""
+    from collections import Counter
+
+    import chip_smoke as cs
+    from onedc_tpu_torch.models.onedc import OneDC
+    from onedc_tpu_torch.parallel import spatial
+
+    class MetaBand(spatial.Band):
+        def gather(self, x, dim):
+            return torch.cat([x] * self.size, dim)
+
+        def sum(self, t):
+            return t.clone()
+
+    k1, k2 = _recorded_launches(monkeypatch)
+    with torch.device("meta"):
+        model = OneDC(z_only=True)
+    h, w = cs.SPATIAL_SIZE
+    z = torch.zeros((1, h // 64, w // 64), dtype=torch.int32, device="meta")
+    for index in range(cs.SPATIAL_BANDS):
+        k1.clear()
+        k2.clear()
+        programs = spatial.SpatialPrograms(
+            model, MetaBand(None, index, cs.SPATIAL_BANDS), True)
+        with torch.no_grad():
+            assert programs.z_only(z).shape == (1, 3, h, w)
+        assert k1 == Counter(dict(cs.K1_SHAPES["spatial768"]))
+        assert k2 == Counter(dict(cs.K2_SHAPES["spatial768"]))
+        assert (sum(k1.values()), sum(k2.values())) == (
+            cs.K1_PER_CALL["768x768"], cs.K2_PER_CALL["768x768"])
+    assert cs.data_mesh_launches() == (
+        cs.ENCODE_PER_CALL[(768, 768)][0] + cs.K1_PER_CALL["768x768"],
+        cs.ENCODE_PER_CALL[(768, 768)][1] + cs.K2_PER_CALL["768x768"])

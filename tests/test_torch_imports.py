@@ -54,7 +54,11 @@ REACHED_MODULES = ("onedc_tpu_torch.entropy.bound", "onedc_tpu_torch.config",
                     "onedc_tpu_torch.utils.remat",
                     "onedc_tpu_torch.models.dmd",
                     "onedc_tpu_torch.nn.text_encoder",
-                    "onedc_tpu_torch.train.trainer_stage2")
+                    "onedc_tpu_torch.train.trainer_stage2",
+                    "onedc_tpu_torch.parallel.distributed",
+                    "onedc_tpu_torch.parallel.mesh",
+                    "onedc_tpu_torch.parallel.fsdp",
+                    "onedc_tpu_torch.parallel.spatial")
 
 
 def test_import_loads_no_jax_and_no_onedc_tpu():
@@ -75,9 +79,9 @@ def test_import_loads_no_jax_and_no_onedc_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, rest = out.stdout.split(" ", 1)
-    assert int(n_modules) >= 66
-    # the walk reached every training, quality, tiling, distillation and
-    # stage-II module
+    assert int(n_modules) >= 70
+    # the walk reached every training, quality, tiling, distillation,
+    # stage-II and multi-process module
     assert rest.strip() == "[] []"
 
 

@@ -78,7 +78,7 @@ def test_trainer_step_pins_numerics(caller_flags, tmp_path):
     images = np.zeros((1, 64, 64, 3), np.float32)
     tr = Trainer(cfg, device="cpu", batches=iter([{"image": images}]))
     seen = []
-    tr.step_fn = lambda state, batch, generator: seen.append(
+    tr.step_fn = lambda state, batch, noise: seen.append(
         numerics.current()) or {}
     tr.train_one_step(0)
     assert seen == [numerics.PINNED]

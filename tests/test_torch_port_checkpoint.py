@@ -26,6 +26,7 @@ from onedc_tpu_torch.utils import port_torch
 from onedc_tpu_torch.utils.port_torch import port_onedc_checkpoint
 from onedc_tpu_torch.utils.safetensors import (
     DTYPES,
+    SafetensorsWriter,
     load_safetensors,
     save_safetensors,
 )
@@ -246,6 +247,27 @@ def test_unknown_dtype_and_bad_offsets_raise(tmp_path):
         load_safetensors(path)
     with pytest.raises(ValueError, match="cannot hold"):
         save_safetensors({"c": torch.zeros(2, dtype=torch.complex64)}, path)
+
+
+def test_writer_takes_tensors_in_name_order(tmp_path):
+    """``SafetensorsWriter`` writes the file ``save_safetensors`` writes,
+    tensor by tensor in name order, and raises for a tensor out of order
+    or one left unwritten."""
+    tensors = {"b": torch.arange(6.0).reshape(2, 3),
+               "a": torch.ones(4, dtype=torch.bfloat16)}
+    save_safetensors(tensors, tmp_path / "whole.st", {"k": "v"})
+    with SafetensorsWriter(tensors, tmp_path / "each.st", {"k": "v"}) as w:
+        assert w.names == ["a", "b"]
+        for name in w.names:
+            w.write(name, tensors[name])
+    assert ((tmp_path / "each.st").read_bytes()
+            == (tmp_path / "whole.st").read_bytes())
+    with pytest.raises(ValueError, match="'b' written where 'a' is next"):
+        with SafetensorsWriter(tensors, tmp_path / "x.st") as w:
+            w.write("b", tensors["b"])
+    with pytest.raises(ValueError, match="'b' and after it never written"):
+        with SafetensorsWriter(tensors, tmp_path / "x.st") as w:
+            w.write("a", tensors["a"])
 
 
 def test_read_only_buffers_load_without_a_warning(tmp_path):

@@ -402,12 +402,31 @@ def test_resume_overrides(tmp_path):
 @pytest.mark.parametrize("key,value", [
     ("fsdp", True), ("multihost", True), ("loader", "grain")])
 def test_unported_options_raise(tmp_path, key, value):
-    """Each option the port does not run yet raises, naming where it
-    stands in ROADMAP.md."""
+    """The option the port does not run (``loader: grain``) raises, naming
+    it; ``fsdp`` and ``multihost``, which used to raise here, are ported:
+    in one process ``fsdp`` shards the trainable parameters over a mesh of
+    one (``parallel/fsdp.py``; the group is left as found), and
+    ``multihost`` builds the trainer as without it (torchrun's environment,
+    absent here, is what joins processes)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
     cfg = {"model": dict(TINY), "allow_no_lpips": True,
            "run_dir": str(tmp_path / "run"), key: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP|grain"):
-        ptrainer.Trainer(cfg, device="cpu")
+    if key == "loader":
+        with pytest.raises(NotImplementedError, match="grain"):
+            ptrainer.Trainer(cfg, device="cpu")
+        return
+    assert not dist.is_initialized()
+    try:
+        tr = ptrainer.Trainer(cfg, device="cpu")
+        # the small trainable tensors stay replicated (``spec_for``)
+        sharded = [isinstance(p, DTensor) for p in tr.state.optimizer.params]
+        assert any(sharded) == (key == "fsdp")
+        assert (tr.mesh is not None) == (key == "fsdp")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def test_guard_sets_flag_and_restores_handlers():

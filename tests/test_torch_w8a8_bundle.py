@@ -86,3 +86,21 @@ def test_w8a8_bundle_serves_the_w8a8_runtimes_images(served):
                                "onedc.affine_silu_conv3x3.default"})):
         assert ops <= targets(name), name
     assert not any("w8a8" in t for t in targets("encode"))
+
+
+def test_prior_programs_are_the_same_in_every_quant_mode(served):
+    """``export_serving_bundle(programs=)`` exports the named programs
+    alone and refuses a name it does not know; an exact runtime's prior
+    programs equal the w8a8 bundle's byte for byte (they are traced
+    outside the quant mode), so one bundle's serve the other's."""
+    out = served[0]
+    exact = OneDCRuntime(port_model(), device="cpu")
+    names = ("begin", "update0_i8")
+    arts = aot.export_serving_bundle(exact, 64, 64, batch=BATCH,
+                                     programs=names)
+    assert sorted(arts) == sorted(names + ("meta",))
+    for name in names:
+        assert arts[name] == (out / f"{name}.pt2").read_bytes(), name
+    with pytest.raises(ValueError, match="no bundle program"):
+        aot.export_serving_bundle(exact, 64, 64, batch=BATCH,
+                                  programs=("fused",))

@@ -34,6 +34,10 @@ again and asserts it equals the file.
   containers, bpp and decodes of the two seeded images; its codec's
   eval-mode rate-distortion forward and ``decompress_z_only`` on the
   test's seeded inputs.
+- ``spatial`` (``tests/test_torch_dist_codecs.py``): the lambda and the
+  z-only runtimes' containers, bpp and decodes of the two 128x128 images
+  of ``torch_port_common.spatial_images`` (a size that two bands split at
+  every level of the tiny UNet).
 - ``w8a8`` (``tests/test_torch_w8a8.py``): the w8a8 runtime's streams of
   ``_images()`` and its decodes (gate 0 while it traces), the TinyVAE
   runtime's decode of the first stream, the z-only runtime's decode of the
@@ -59,7 +63,8 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parent))
 sys.path.insert(0, str(HERE.parent.parent))
 
-NAMES = ("cli", "decode", "evals", "serving", "tiled", "w8a8", "z_only")
+NAMES = ("cli", "decode", "evals", "serving", "spatial", "tiled", "w8a8",
+         "z_only")
 
 
 def path(name: str) -> Path:
@@ -401,6 +406,24 @@ def compute_z_only() -> dict:
     for k, v in fwd.items():
         out[f"fwd/{k}"] = np.asarray(v)
     out["x_hat"], out["y_sem"] = np.asarray(x_hat), np.asarray(y_sem)
+    return out
+
+
+def compute_spatial() -> dict:
+    import jax.numpy as jnp
+
+    from onedc_tpu.models.onedc import OneDCRuntime as JaxOneDCRuntime
+    from torch_port_common import spatial_images, tiny_jax_model
+
+    jm, params = tiny_jax_model()
+    out = {}
+    for kind, model in (("lambda", jm), ("z_only", jm.clone(z_only=True))):
+        rt = JaxOneDCRuntime(model, params)
+        rt.update(force=True)
+        for i, image in enumerate(spatial_images()):
+            s, b = rt.encode(jnp.asarray(image[None]))
+            _put(out, f"{kind}{i}", s, b)
+            out[f"{kind}{i}_decoded"] = np.asarray(rt.decode(stream=bytes(s)))
     return out
 
 

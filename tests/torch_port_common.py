@@ -63,6 +63,14 @@ def seeded_images():
             rng.uniform(-1, 1, (1, 50, 39, 3)).astype(np.float32)]
 
 
+def spatial_images():
+    """Two seeded (128, 128, 3) f32 images in [-1, 1]: their 16 latent
+    rows split over two bands at every level of the tiny UNet (the
+    spatial decode's tests, ``tests/test_torch_dist_codecs.py``)."""
+    rng = np.random.default_rng(41)
+    return rng.uniform(-1, 1, (2, 128, 128, 3)).astype(np.float32)
+
+
 def fill_params(shapes, rng: np.random.Generator):
     """Seeded f32 leaves for a flax shape tree: kernels ~ GAIN * N(0, 1/fan_in),
     norm scales ~ 1 + N(0, 0.1^2), biases ~ N(0, 0.1^2)."""
