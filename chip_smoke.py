@@ -106,7 +106,13 @@
    PSNR / MS-SSIM against numpy f64 and its LPIPS, DISTS and Inception
    features and logits against the same modules on the CPU (the QUALITY_*
    limits); the metric nets' rates, the host ``sqrtm`` seconds, walls and
-   peak memory.
+   peak memory. Then the remainders phase (``remainders_path``), on the
+   same release: the TinyVAE encoder at 768x768 in bf16 against f32, a
+   Laplace and a factorized coder round trip with their models on the
+   card, ``convert_weights onedc`` of the release whose ``ckpt=`` decode
+   writes the PNG bytes of the cli phase's ``checkpoint_path=`` decode,
+   and ``profile_trace`` of one more decode, whose trace holds its K1 and
+   K2 kernels.
 13. Training path: ``Trainer`` on ``configs/train_stage1.yaml`` with the
    overrides in ``TRAIN_OVERRIDES`` (AdamW, no Codeformer, no remat) and a
    seeded random LPIPS file
@@ -122,12 +128,14 @@
    quality phases' runtimes are dropped must be under 1 GiB (no runtime
    sits in a reference cycle).
 14. Training-loop phase (``train_loop_path``): ``train.trainer.main`` on
-   the same config with seeded 1024x1024 training PNGs and 512x768 eval
-   PNGs: TRAIN_LOOP_STEPS steps, eval and a checkpoint at TRAIN_LOOP_SAVE,
-   then ``--resume`` in a fresh trainer; the resumed state equals the
-   uninterrupted run's bit for bit, device memory returns once the first
-   trainer is dropped, launches as ``train_loop_launches``; checkpoint
-   bytes, save and restore seconds, s/step.
+   the same config with seeded 1024x1024 training PNGs read by
+   TRAIN_LOOP_WORKERS worker processes (``loader: grain``) and 512x768
+   eval PNGs: TRAIN_LOOP_STEPS steps, eval and a checkpoint (with the
+   loader's position) at TRAIN_LOOP_SAVE, then ``--resume`` in a fresh
+   trainer; the resumed state equals the uninterrupted run's bit for bit,
+   device memory returns once the first trainer is dropped, launches as
+   ``train_loop_launches``; checkpoint bytes, save and restore seconds,
+   s/step.
 15. Stage-I yaml phase (``stage1_yaml_path``): ``train.trainer.main`` on
    configs/train_stage1.yaml as shipped (Adafactor, the Codeformer against
    the frozen VQGAN, frozen [vae, vqgan], batch 8, remat, FSDP2 over a
@@ -161,7 +169,7 @@
 17. Prints ``{"kernels": [...]}``: K1 bf16 and f32, K1-bwd, K2 bf16 and
    f32, K3, with their launches by path (bf16: decode, encode,
    decode_z_only, serve, bundle, decode_w8a8, cli, quality, tiled, spatial,
-   data_mesh; f32:
+   data_mesh, remainders; f32:
    train, train_loop, stage1_yaml, stage2), the card line and, last, the
    device line.
 
@@ -552,6 +560,9 @@ TRAIN_LOOP_TRAIN = 4
 TRAIN_LOOP_EVAL = 2
 TRAIN_LOOP_STEPS = 3
 TRAIN_LOOP_SAVE = 2
+# the loop's training PNGs are read by this many worker processes
+# (``loader: grain``), whose position the checkpoint carries to --resume
+TRAIN_LOOP_WORKERS = 2
 EVAL_PER_IMAGE = {(512, 768): (5, 0, 48, 0), (512, 512): (5, 0, 48, 0)}
 # the w8a8 phase: ops per decode that run quantized at the default gate 512,
 # by family (``nn/quant.py:family``; the full-width model's structure, held
@@ -574,6 +585,18 @@ QUALITY_PSNR_TOL = 1e-3
 QUALITY_SSIM_TOL = 1e-4
 QUALITY_DIST_TOL = 1e-3
 QUALITY_FEAT_TOL = 1e-3
+# the remainders phase (``remainders_path``): the TinyVAE encoder at 768x768
+# in bf16 on the card against its f32 run on the same weights and image
+# (cuDNN convs, TF32 off): the bf16 activations of 13 convs; relative L2
+# over the latents, and the largest error against the largest value
+TINY_ENC_REL_L2_TOL = 2e-2
+TINY_ENC_MAX_TOL = 6e-2
+# its coder round trips: a Laplace stream of (1, 320, 48, 48) symbols under
+# scales drawn on the card, skipped below LAPLACE_SKIP; a factorized z of
+# (1, 12, 12, 192) under a BitEstimator on the card
+LAPLACE_SHAPE = (1, 320, 48, 48)
+LAPLACE_SKIP = 0.02
+FACTORIZED_SHAPE = (1, 12, 12, 192)
 
 
 def card_line() -> str:
@@ -2620,7 +2643,8 @@ def serve_kodak_sized(ev, rt, tmp: Path, seed: int, counts):
     return rates
 
 
-def cli_path(seed: int, release: Path, nbytes: int, probes: dict):
+def cli_path(seed: int, release: Path, nbytes: int, probes: dict,
+             keep: Path):
     """The cli phase: ``eval.inference.main`` on the full-width release
     layout (``release``, from ``write_release``: ``nbytes`` bytes, its
     ``probes``; through ``checkpoint_path=``, no ``vae_ckpt``: the VAE
@@ -2634,8 +2658,9 @@ def cli_path(seed: int, release: Path, nbytes: int, probes: dict):
     graft) on the same model decodes a 768x768 stream with K2 at 0 while
     the Evaluator's runtime still decodes through the large VAE;
     ``--decoder_only`` in a fresh Evaluator writes ``evaluate()``'s PNG
-    bytes. Returns the K1 and K2 launches of the ``main`` run of
-    ``evaluate``."""
+    bytes. Keeps the 768x768 image's ``.bin`` (``keep/bin``) and its
+    ``--decoder_only`` PNG (``keep``) for the remainders phase. Returns the
+    K1 and K2 launches of the ``main`` run of ``evaluate``."""
     from onedc_tpu_torch.data.images import load_image, save_image
     from onedc_tpu_torch.entropy.framing import read_from_file
     from onedc_tpu_torch.eval import inference
@@ -2774,9 +2799,206 @@ def cli_path(seed: int, release: Path, nbytes: int, probes: dict):
             raise AssertionError("--decoder_only differs from evaluate()")
         del dev
         torch.cuda.empty_cache()
+        (keep / "bin").mkdir(parents=True)
+        shutil.copy(tmp / "eval" / "bin" / f"{names[0]}.bin", keep / "bin")
+        shutil.copy(tmp / "decoder_only" / "recon" / f"{names[0]}.png", keep)
     finally:
         shutil.rmtree(tmp)
     return launches
+
+
+def trace_kernel_counts(trace_dir: Path) -> dict:
+    """{family: kernels} of the Chrome trace that ``profile_trace`` wrote
+    into ``trace_dir``: device kernels whose names hold K1's
+    (``flash_fwd_kernel``) or K2's (``gn_silu_conv3x3_kernel``)."""
+    (path,) = trace_dir.glob("trace_*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {"K1": sum("flash_fwd_kernel" in n for n in kernels),
+            "K2": sum("gn_silu_conv3x3_kernel" in n for n in kernels),
+            "kernels": len(kernels)}
+
+
+def remainders_path(seed: int, release: Path, kept: Path) -> tuple:
+    """The remainders phase: the modules of the last slice on the card.
+    (1) ``nn/vae.py:TinyVaeEncoder`` (taesd, ch 64) on seeded random
+    weights at 768x768: bf16 against its f32 run (TINY_ENC_* limits), its
+    CUDA-event ms in both, and an encode -> ``TinyVaeDecoder`` round trip
+    of the input's size, finite. (2) A Laplace
+    ``GaussianConditionalCoder`` stream of LAPLACE_SHAPE symbols under
+    scales drawn on the card and indexed there (``build_indexes(...,
+    "laplace")``), decoded exactly (skipped symbols as 0). (3) A
+    ``FactorizedCoder`` whose ``BitEstimator`` (random parameters) runs on
+    the card: its table, and a FACTORIZED_SHAPE z decoded exactly.
+    (4) ``utils/convert_weights.py onedc`` of the full-width release
+    (the cli phase's: no VAE, so the file carries the CLI's seeded one,
+    drawn on the card) into one f32 safetensors file; the CLI with
+    ``ckpt=`` that file and ``--decoder_only`` on the cli phase's kept
+    768x768 ``.bin`` writes the PNG bytes ``checkpoint_path=`` wrote.
+    (5) ``utils/logging.py:profile_trace`` around one more 768x768 decode
+    of that runtime: its Chrome trace holds as many K1 and K2 kernels as
+    ``decode_launches(768, 768)``. Returns ((K1, K2) launches of (4) and
+    (5), a record of the phase's figures)."""
+    from onedc_tpu_torch.entropy.coder import EntropyCoder
+    from onedc_tpu_torch.entropy.factorized import BitEstimator, \
+        FactorizedCoder
+    from onedc_tpu_torch.entropy.framing import read_from_file
+    from onedc_tpu_torch.entropy.gaussian import GaussianConditionalCoder, \
+        build_indexes
+    from onedc_tpu_torch.eval import inference
+    from onedc_tpu_torch.nn.vae import TinyVaeDecoder, TinyVaeEncoder
+    from onedc_tpu_torch.ops import conv3x3 as k2
+    from onedc_tpu_torch.ops import flash_attention as k1
+    from onedc_tpu_torch.utils import convert_weights
+    from onedc_tpu_torch.utils.logging import profile_trace
+
+    counts = (k1, k2)
+    rec = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 31)
+
+    # (1) the TinyVAE encoder
+    with torch.device("cuda"):
+        enc, dec = TinyVaeEncoder(), TinyVaeDecoder()
+    init_random_weights(enc, seed + 32)
+    init_random_weights(dec, seed + 33)
+    x = torch.rand((1, 3, 768, 768), generator=gen, device="cuda") * 2 - 1
+    with torch.no_grad():
+        ref = enc(x)
+        f32_ms = cuda_ms(lambda: enc(x))
+        enc, dec = enc.to(torch.bfloat16), dec.to(torch.bfloat16)
+        x16 = x.to(torch.bfloat16)
+        (lat, got) = counted(counts, lambda: enc(x16))
+        bf16_ms = cuda_ms(lambda: enc(x16))
+        image = dec(lat)
+    diff = lat.double() - ref.double()
+    rel = float(diff.norm() / ref.double().norm())
+    mx = float(diff.abs().max() / ref.abs().max())
+    rec["tiny_vae_encode"] = {"bf16_ms": bf16_ms, "f32_ms": f32_ms,
+                              "rel_l2": rel, "max_of_max": mx,
+                              "latent": list(lat.shape)}
+    print(f"remainders: TinyVAE encoder 768x768, bf16 {bf16_ms:.3f} ms, "
+          f"f32 {f32_ms:.3f} ms; bf16 against f32: relative L2 {rel:.3e} "
+          f"(limit {TINY_ENC_REL_L2_TOL}), max {mx:.3e} (limit "
+          f"{TINY_ENC_MAX_TOL}); latents {tuple(lat.shape)}; K1/K2 "
+          f"launches {got}", flush=True)
+    if not (rel <= TINY_ENC_REL_L2_TOL and mx <= TINY_ENC_MAX_TOL) \
+            or lat.shape != (1, 4, 96, 96) or got != (0, 0):
+        raise AssertionError("the TinyVAE encoder's bf16 run on the card "
+                             "is not its f32 run")
+    if image.shape != (1, 3, 768, 768) or not torch.isfinite(image).all():
+        raise AssertionError(f"TinyVAE round trip: {tuple(image.shape)}")
+    del enc, dec, x, x16, ref, lat, image
+
+    # (2) a Laplace stream, indexed on the card
+    scales = torch.exp(torch.randn(LAPLACE_SHAPE, generator=gen,
+                                   device="cuda") * 1.5 - 0.5)
+    idx = build_indexes(scales, LAPLACE_SKIP, "laplace")
+    rng = np.random.default_rng(seed + 34)
+    sym = np.round(rng.laplace(0.0, scales.cpu().numpy())).astype(np.int16)
+    idx = idx.cpu().numpy()
+    t0 = time.perf_counter()
+    wr = GaussianConditionalCoder("laplace")
+    ec = EntropyCoder()
+    wr.update(ec)
+    wr.encode_with_indexes(sym, idx)
+    ec.flush()
+    stream = ec.get_encoded_stream()
+    rd = GaussianConditionalCoder("laplace")
+    dc = EntropyCoder()
+    rd.update(dc)
+    dc.set_stream(stream)
+    out = rd.decode_stream_with_indexes(idx)
+    lap_s = time.perf_counter() - t0
+    if not np.array_equal(out, np.where(idx < 0, 0, sym)):
+        raise AssertionError("the Laplace stream does not decode to its "
+                             "symbols")
+    rec["laplace"] = {"symbols": int(sym.size), "bytes": len(stream),
+                      "skipped": int((idx < 0).sum()), "s": lap_s}
+    print(f"remainders: Laplace stream of {sym.size} symbols "
+          f"({int((idx < 0).sum())} skipped) under card-side indexes, "
+          f"{len(stream)} bytes, decoded exactly; coded and decoded in "
+          f"{lap_s:.3f} s", flush=True)
+
+    # (3) the factorized prior, its BitEstimator on the card
+    channels = FACTORIZED_SHAPE[-1]
+    with torch.device("cuda"):
+        be = BitEstimator(channels)
+    with torch.no_grad():
+        for p in be.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.8)
+    fc = FactorizedCoder(be)
+    ec = EntropyCoder()
+    t0 = time.perf_counter()
+    fc.update(ec)
+    table_s = time.perf_counter() - t0
+    z = np.round(rng.normal(0, 3, FACTORIZED_SHAPE)).astype(np.int32)
+    fc.encode(z)
+    ec.flush()
+    stream = ec.get_encoded_stream()
+    dc = EntropyCoder()
+    rd = FactorizedCoder(be)
+    rd.update(dc)
+    dc.set_stream(stream)
+    out = rd.decode_stream(FACTORIZED_SHAPE[1:3])
+    if not np.array_equal(out.astype(np.int32), z):
+        raise AssertionError("the factorized stream does not decode to z")
+    rec["factorized"] = {"channels": channels, "table_s": table_s,
+                         "bytes": len(stream)}
+    print(f"remainders: FactorizedCoder of {channels} channels, its table "
+          f"from the BitEstimator on the card in {table_s:.3f} s; z of "
+          f"{z.size} symbols in {len(stream)} bytes, decoded exactly",
+          flush=True)
+    del be, fc, rd
+
+    # (4) convert_weights onedc, then ckpt= against checkpoint_path=
+    tmp = Path(tempfile.mkdtemp(prefix="onedc_remainders_"))
+    try:
+        conv = tmp / "onedc.safetensors"
+        t0 = time.perf_counter()
+        convert_weights.main([
+            "onedc", "--unet", str(release / "model.safetensors"),
+            "--codec", str(release / "model_1.safetensors"),
+            "--out", str(conv), f"seed={seed}"])
+        convert_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        (name,) = [p.stem for p in (kept / "bin").glob("*.bin")]
+        ev, decoded = counted(counts, lambda: inference.main([
+            "--config", "configs/inference_lambda.yaml", f"ckpt={conv}",
+            f"seed={seed}", "--decoder_only", "--decoder_bin_path",
+            str(kept / "bin"), f"output_path={tmp / 'decoded'}"]))
+        same = ((tmp / "decoded" / "recon" / f"{name}.png").read_bytes()
+                == (kept / f"{name}.png").read_bytes())
+        rec["converted"] = {"bytes": conv.stat().st_size,
+                            "convert_s": convert_s, "load_s": ev.load_s}
+        print(f"remainders: convert_weights onedc of the release in "
+              f"{convert_s:.2f} s, {conv.stat().st_size / 1e9:.3f} GB; "
+              f"ckpt= load {ev.load_s:.2f} s; --decoder_only of {name} "
+              f"launched K1/K2 {decoded}; PNG bytes equal checkpoint_path="
+              f"'s: {same}", flush=True)
+        if not same or decoded != decode_launches(768, 768):
+            raise AssertionError("ckpt= of the converted release does not "
+                                 "decode as checkpoint_path= does")
+
+        # (5) profile_trace around one decode
+        stream = read_from_file(kept / "bin" / f"{name}.bin")
+        with profile_trace(tmp / "trace"):
+            _, traced = counted(counts, lambda: ev.runtime.decode(stream))
+        found = trace_kernel_counts(tmp / "trace")
+        rec["trace"] = found
+        print(f"remainders: profile_trace of one 768x768 decode: "
+              f"{found['kernels']} device kernels, K1 {found['K1']}, K2 "
+              f"{found['K2']}; the wrappers counted {traced}, the tables "
+              f"{decode_launches(768, 768)}", flush=True)
+        if (found["K1"], found["K2"]) != decode_launches(768, 768) \
+                or traced != decode_launches(768, 768):
+            raise AssertionError("the trace does not hold the decode's K1 "
+                                 "and K2 launches")
+        del ev
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp)
+    return tuple(a + b for a, b in zip(decoded, traced)), rec
 
 
 def quality_launches(sizes, points: int = 2):
@@ -3475,7 +3697,8 @@ def train_loop_path(seed: int):
                          eval_data=str(tmp / "eval"), run_dir=str(run),
                          total_steps=TRAIN_LOOP_STEPS,
                          save_interval=TRAIN_LOOP_SAVE, log_interval=1,
-                         max_checkpoint=1)
+                         max_checkpoint=1, loader="grain",
+                         loader_workers=TRAIN_LOOP_WORKERS)
         argv = ["--config", "configs/train_stage1.yaml"] + [
             f"{k}={json.dumps(v)}" for k, v in overrides.items()]
         cfg = load_config("configs/train_stage1.yaml", overrides)
@@ -3506,6 +3729,13 @@ def train_loop_path(seed: int):
         whole = tr.main(argv)
         torch.cuda.synchronize()
         whole_s = time.perf_counter() - t0
+        whole.train_iter.close()  # the loader's worker processes
+        state_file = run / f"loader_state_{TRAIN_LOOP_SAVE:06d}.bin"
+        if not state_file.exists():
+            raise AssertionError(f"the run directory lacks {state_file.name}")
+        print(f"train loop: loader: grain, {TRAIN_LOOP_WORKERS} worker "
+              f"processes; position at step {TRAIN_LOOP_SAVE} saved as "
+              f"{state_file.read_bytes().decode()}", flush=True)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         tensors, meta = whole.checkpoint_state()
         t0 = time.perf_counter()
@@ -3530,6 +3760,7 @@ def train_loop_path(seed: int):
         resumed = tr.main(argv + ["--resume"])
         torch.cuda.synchronize()
         resume_s = time.perf_counter() - t0
+        resumed.train_iter.close()
         tensors, meta_r = resumed.checkpoint_state()
         if meta_r != meta or sorted(tensors) != sorted(want):
             raise AssertionError(f"resumed state {meta_r}, uninterrupted "
@@ -4374,21 +4605,28 @@ def main():
         torch.cuda.empty_cache()
         # the release that the cli and quality phases load
         release = Path(tempfile.mkdtemp(prefix="onedc_release_"))
+        kept = Path(tempfile.mkdtemp(prefix="onedc_kept_"))
         try:
             gen_s, write_s, nbytes, probes = write_release(release)
             print(f"cli: full-layout twins generated in {gen_s:.2f} s; "
                   f"written in F16 in {write_s:.2f} s, {nbytes / 1e9:.3f} GB",
                   flush=True)
             t0 = time.perf_counter()
-            cli = cli_path(args.seed, release, nbytes, probes)
+            cli = cli_path(args.seed, release, nbytes, probes, kept)
             del probes
             print(f"cli phase: {time.perf_counter() - t0:.1f} s", flush=True)
             t0 = time.perf_counter()
             quality = quality_path(args.seed, release, card)
             print(f"quality phase: {time.perf_counter() - t0:.1f} s",
                   flush=True)
+            t0 = time.perf_counter()
+            remainders, remainders_rec = remainders_path(args.seed, release,
+                                                         kept)
+            print(f"remainders phase: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
         finally:
             shutil.rmtree(release)
+            shutil.rmtree(kept)
         # the cli and quality phases' runtimes are gone with their last
         # references (none sits in a reference cycle)
         left = torch.cuda.memory_allocated() / 2 ** 30
@@ -4422,13 +4660,13 @@ def main():
                "bundle": bundle["K1"], "decode_w8a8": decode_w8a8["K1"],
                "cli": cli["K1"], "quality": quality["K1"],
                "tiled": tiled["K1"], "spatial": spatial["K1"],
-               "data_mesh": data_mesh["K1"]}
+               "data_mesh": data_mesh["K1"], "remainders": remainders[0]}
     k2_bf16 = {"decode": decode["K2"], "encode": encode["K2"],
                "decode_z_only": z_only["K2"], "serve": serve["K2"],
                "bundle": bundle["K2"], "decode_w8a8": decode_w8a8["K2"],
                "cli": cli["K2"], "quality": quality["K2"],
                "tiled": tiled["K2"], "spatial": spatial["K2"],
-               "data_mesh": data_mesh["K2"]}
+               "data_mesh": data_mesh["K2"], "remainders": remainders[1]}
     k1_f32, k1_bwd, k2_f32, k3 = (
         {"train": train[k], "train_loop": train_loop[k],
          "stage1_yaml": stage1[k], "stage2": stage2[k]}
@@ -4461,6 +4699,7 @@ def main():
             raise AssertionError(f"{k['name']} was not launched on a main "
                                  f"path: {k['launches_by_path']}")
     print("train steps " + json.dumps(records), flush=True)
+    print("remainders " + json.dumps(remainders_rec), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,17 +1,78 @@
-"""YAML configs with dotted overrides.
+"""YAML configs with dotted overrides, and ``target:`` instantiation.
 
-JAX counterpart, copied in what the trainer and the inference CLI need:
-``onedc_tpu/config.py`` (``load_yaml``, ``set_path``, ``merge``,
-``parse_cli_overrides`` :84, ``load_config`` :103). Configs are plain
-nested dicts here.
+JAX counterpart: ``onedc_tpu/config.py`` (``Config`` :18, ``load_yaml``,
+``merge``, ``parse_cli_overrides`` :84, ``load_config`` :103,
+``instantiate`` :108). The loaders return plain nested dicts here;
+``Config.wrap`` gives one the JAX package's attribute access.
 """
 
 from __future__ import annotations
 
 import copy
+import importlib
 from typing import Any, Iterable, Mapping, Optional, Union
 
 import yaml
+
+
+class Config(dict):
+    """A dict with attribute access, wrapped recursively (nested mappings
+    become ``Config``s, lists are walked)."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    @staticmethod
+    def wrap(obj: Any) -> Any:
+        if isinstance(obj, Mapping):
+            return Config({k: Config.wrap(v) for k, v in obj.items()})
+        if isinstance(obj, list):
+            return [Config.wrap(v) for v in obj]
+        return obj
+
+    def to_dict(self) -> dict:
+        def unwrap(o):
+            if isinstance(o, Mapping):
+                return {k: unwrap(v) for k, v in o.items()}
+            if isinstance(o, list):
+                return [unwrap(v) for v in o]
+            return o
+        return unwrap(self)
+
+    def get_path(self, dotted: str, default: Any = None) -> Any:
+        node: Any = self
+        for part in dotted.split("."):
+            if not isinstance(node, Mapping) or part not in node:
+                return default
+            node = node[part]
+        return node
+
+    def set_path(self, dotted: str, value: Any) -> None:
+        """self["a"]["b"] = value for dotted "a.b", making ``Config``s on
+        the way; the value wrapped."""
+        parts = dotted.split(".")
+        node: Any = self
+        for part in parts[:-1]:
+            if not isinstance(node.get(part), Mapping):
+                node[part] = Config()
+            node = node[part]
+        node[parts[-1]] = Config.wrap(value)
+
+
+def instantiate(spec: Mapping, **extra_kwargs: Any) -> Any:
+    """The object of a ``{"target": "pkg.mod.Cls", "params": {...}}``
+    spec, ``extra_kwargs`` over its params."""
+    module_name, _, attr = spec["target"].rpartition(".")
+    cls = getattr(importlib.import_module(module_name), attr)
+    params = dict(spec.get("params") or {})
+    params.update(extra_kwargs)
+    return cls(**params)
 
 
 def load_yaml(path) -> dict:

@@ -123,14 +123,15 @@ def _read_png(path) -> np.ndarray:
     return pixels.reshape(height, width, ch)
 
 
-def write_png(path, pixels: np.ndarray) -> None:
-    """(H, W) or (H, W, C) uint8, C in 1, 3, 4 -> a PNG file (filter 0)."""
+def png_bytes(pixels: np.ndarray, what="image") -> bytes:
+    """(H, W) or (H, W, C) uint8, C in 1, 3, 4 -> the bytes of a PNG file
+    (filter 0)."""
     pixels = np.asarray(pixels)
     if pixels.ndim == 2:
         pixels = pixels[:, :, None]
     h, w, ch = pixels.shape
     if pixels.dtype != np.uint8 or ch not in _COLOR_TYPE:
-        raise ValueError(f"{path}: write_png takes uint8 with 1, 3 or 4 "
+        raise ValueError(f"{what}: write_png takes uint8 with 1, 3 or 4 "
                          f"channels, got {pixels.dtype} {pixels.shape}")
     rows = np.zeros((h, w * ch + 1), np.uint8)
     rows[:, 1:] = pixels.reshape(h, w * ch)
@@ -140,10 +141,16 @@ def write_png(path, pixels: np.ndarray) -> None:
                 + struct.pack(">I", zlib.crc32(kind + body)))
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[ch], 0, 0, 0)
+    return (PNG_SIGNATURE + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path, pixels: np.ndarray) -> None:
+    """(H, W) or (H, W, C) uint8, C in 1, 3, 4 -> a PNG file (filter 0)."""
+    data = png_bytes(pixels, path)
     with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(rows.tobytes()))
-                + chunk(b"IEND", b""))
+        f.write(data)
 
 
 def _pil_image():

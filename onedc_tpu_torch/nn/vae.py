@@ -13,8 +13,9 @@ per-image affine, and on the card kernel K2 applies it, the SiLU and the
 memory.
 
 ``TinyVaeDecoder`` (JAX ``nn/vae.py:250-283``) is the taesd decoder, the
-reference's small-VAE option (``use_large_vae=False``): stock convs only,
-no hand kernel.
+reference's small-VAE option (``use_large_vae=False``), and
+``TinyVaeEncoder`` (:285-297) its encoder, on no decode path: stock convs
+only, no hand kernel (JAX has none either).
 """
 
 from __future__ import annotations
@@ -267,7 +268,7 @@ class AutoencoderKL(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Tiny VAE decoder (taesd architecture)
+# Tiny VAE (taesd architecture)
 # ---------------------------------------------------------------------------
 
 class TaesdBlock(nn.Module):
@@ -312,3 +313,29 @@ class TinyVaeDecoder(nn.Module):
                 x = getattr(self, f"stage{stage}_block{b}")(x)
             x = getattr(self, f"stage{stage}_conv")(x)
         return self.conv_out(self.final_block(x))
+
+
+class TinyVaeEncoder(nn.Module):
+    """taesd encoder: image (B, 3, H, W) -> latent (B, latent_ch, H / 8,
+    W / 8): ``conv_in``, three stages of a bias-free stride-2 conv
+    (``stage{i}_down``, padding 1 on every side) and three ``TaesdBlock``s,
+    then ``conv_out``; no activation between the convs outside the
+    blocks, as JAX ``nn/vae.py:285-297``."""
+
+    def __init__(self, ch: int = 64, latent_ch: int = 4, in_ch: int = 3):
+        super().__init__()
+        self.conv_in = conv3x3(in_ch, ch)
+        for stage in range(3):
+            self.add_module(f"stage{stage}_down",
+                            conv3x3(ch, ch, bias=False, stride=2))
+            for b in range(3):
+                self.add_module(f"stage{stage}_block{b}", TaesdBlock(ch, ch))
+        self.conv_out = conv3x3(ch, latent_ch)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for stage in range(3):
+            x = getattr(self, f"stage{stage}_down")(x)
+            for b in range(3):
+                x = getattr(self, f"stage{stage}_block{b}")(x)
+        return self.conv_out(x)

@@ -12,6 +12,11 @@ API mirrors the reference's ``MLCodec_rans`` module:
         get_encoded_stream, reset}
     RansDecoder(stream_part).{add_cdf, set_stream, decode_stream}
     decode_streams_multi(decoders, indexes, group)
+    pmf_to_quantized_cdf(pmf, precision)  (the reference's MLCodec_CXX)
+
+``pmf_to_quantized_cdf_np`` is the quantizer in numpy (JAX
+``ops/rans.py:121-152``), the plain version the tests hold the native one
+against.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ import numpy as np
 
 from .build import load_library
 
+_F32P = ctypes.POINTER(ctypes.c_float)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I16P = ctypes.POINTER(ctypes.c_int16)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
+_U32P = ctypes.POINTER(ctypes.c_uint32)
 _VP = ctypes.c_void_p
 
 _SIGNATURES = {
@@ -48,7 +55,11 @@ _SIGNATURES = {
     "onedc_decoder_decode_multi": (None, [
         ctypes.POINTER(_VP), ctypes.c_int, _I16P, ctypes.c_int,
         ctypes.c_int, _I16P]),
+    "onedc_pmf_to_quantized_cdf": (None, [_F32P, ctypes.c_int, ctypes.c_int,
+                                          _U32P]),
 }
+
+PRECISION = 16
 
 
 def native_lib() -> ctypes.CDLL:
@@ -58,6 +69,48 @@ def native_lib() -> ctypes.CDLL:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def pmf_to_quantized_cdf(pmf, precision: int = PRECISION) -> np.ndarray:
+    """uint32 [n + 1] quantized CDF of the n-bucket ``pmf`` (total
+    ``2**precision``, every bucket at least 1 wide where another bucket can
+    give), by the native library."""
+    pmf = np.ascontiguousarray(pmf, dtype=np.float32).reshape(-1)
+    out = np.empty(pmf.shape[0] + 1, dtype=np.uint32)
+    native_lib().onedc_pmf_to_quantized_cdf(
+        _ptr(pmf, ctypes.c_float), pmf.shape[0], precision,
+        _ptr(out, ctypes.c_uint32))
+    return out
+
+
+def pmf_to_quantized_cdf_np(pmf, precision: int = PRECISION) -> np.ndarray:
+    """The quantizer in numpy, the reference's ``ops.cpp:24-82``: f32
+    rounding of p * 2^precision plus 0.5, truncated; integer
+    renormalisation to a total of 2^precision; then each zero-width bucket
+    takes one from the narrowest bucket wider than 1."""
+    pmf = np.asarray(pmf, dtype=np.float32).reshape(-1)
+    n = pmf.shape[0]
+    cdf = np.zeros(n + 1, dtype=np.uint64)
+    cdf[1:] = (np.round(pmf * np.float32(1 << precision)).astype(np.float64)
+               + 0.5).astype(np.uint64)
+    total = int(cdf.sum()) or 1
+    cdf = ((1 << precision) * cdf) // total
+    cdf = np.cumsum(cdf, dtype=np.uint64)
+    cdf[-1] = 1 << precision
+    cdf = cdf.astype(np.int64)
+    for i in range(n):
+        if cdf[i] != cdf[i + 1]:
+            continue
+        freqs = cdf[1:] - cdf[:-1]
+        candidates = np.where(freqs > 1)[0]
+        if candidates.size == 0:
+            continue
+        steal = candidates[np.argmin(freqs[candidates])]
+        if steal < i:
+            cdf[steal + 1:i + 1] -= 1
+        else:
+            cdf[i + 1:steal + 1] += 1
+    return cdf.astype(np.uint32)
 
 
 def _cdf_args(cdfs, cdfs_sizes, offsets):

@@ -34,17 +34,27 @@ codec's noise for all of it, and keeps its rows (``rank_rows``): N ranks
 compute what one does. Metrics are averaged over the ranks, eval metrics
 too (``reduce_mean_across_hosts``); only process 0 writes.
 
-Differences, by design or not yet ported:
-- the local-folder loader only (``loader: grain`` raises);
+``loader: grain`` reads the folder with worker processes
+(``data/datasets.py:make_grain_loader``, ``loader_workers`` of them, 8 by
+default): each rank reads its own disjoint share of every epoch, in
+batches of ``batch_size`` / ranks, and trains them as its rows of the
+global batch (the noise is still drawn for the whole of it), so an epoch
+trains each record once over all ranks; the loader's position is saved
+beside every checkpoint (``loader_state_NNNNNN.bin``) and restored by
+``resume``, as JAX ``trainer.py:356-384``.
+
+Differences, by design:
+- the worker loader's order is its own, not grain's index shuffle;
 - ``batches=`` (an iterable of numpy ``{"image": (B, H, W, 3)}`` in
   [-1, 1]) stands in for ``train_data``;
 - the noise of the codec's bit estimate comes from a ``torch.Generator``
   seeded from ``seed + 1`` and the step, as the JAX trainer derives its
   keys (``:222``, ``:245``); the numbers differ from ``jax.random``'s;
 - checkpoints are the port's safetensors files (``utils/checkpoint.py``),
-  and the writer appends to ``<run_dir>/metrics.jsonl`` and writes PNGs
-  (``utils/logging.py:RunWriter``), where JAX writes orbax trees and
-  TensorBoard summaries.
+  where JAX writes orbax trees; the writer appends to
+  ``<run_dir>/metrics.jsonl`` and writes PNGs
+  (``utils/logging.py:make_writer``) beside JAX's TensorBoard summaries
+  (``<run_dir>/tb``, where the package imports).
 
 The trainer runs on the card unless the caller (or the config's
 ``device``) names a device: with no device and no GPU it raises
@@ -69,14 +79,16 @@ import torch
 
 from ..config import load_config
 from ..data.crops import MultiResolutionCrop, random_crop
-from ..data.datasets import DataLoader, ImageFolderDataset, cycle
+from ..data.datasets import DataLoader, ImageFolderDataset, cycle, \
+    make_grain_loader
 from ..models.onedc import OneDC, resolve_device
 from ..nn.lpips import load_lpips, nhwc_metric
 from ..nn.vae import hwio_conv_weights
 from ..parallel.distributed import initialize, is_main_process, \
     reduce_mean_across_hosts, world_size
 from ..parallel.fsdp import shard_model
-from ..parallel.mesh import DATA_AXIS, axis_size, make_mesh, rank_rows
+from ..parallel.mesh import DATA_AXIS, axis_rank, axis_size, make_mesh, \
+    rank_rows
 from ..utils.checkpoint import CheckpointManager
 from ..utils.logging import AvgDict, get_logger, make_writer
 from ..utils.numerics import pinned
@@ -147,10 +159,8 @@ class Trainer:
         ``seed``, then the config's warm starts. ``device``: None takes
         the config's ``device``, and with neither the card."""
         self.cfg = cfg
-        if cfg.get("loader", "simple") != "simple":
-            raise NotImplementedError(
-                f"loader: {cfg['loader']}: only the local-folder loader is "
-                f"ported (grain is not on ROADMAP.md's Queue 1)")
+        if cfg.get("loader", "simple") not in ("simple", "grain"):
+            raise ValueError(f"loader: {cfg['loader']!r}: simple or grain")
         if not cfg.get("lpips_weights"):
             # a config error fails before any model build
             if not cfg.get("allow_no_lpips", False):
@@ -222,8 +232,25 @@ class Trainer:
         self.crop = MultiResolutionCrop(cfg.get("resolutions", [res]),
                                         cfg.get("batch_scales", None))
         self.train_loader = None
+        # how many ranks split each global batch at the loader: the worker
+        # loader reads a share per rank, the others the whole on each rank
+        self.loader_shares = 1
         if batches is not None:
             self.train_iter = iter(batches)
+        elif cfg.get("train_data") and cfg.get("loader") == "grain":
+            # worker processes read the images; the stream's position
+            # rides the checkpoints (loader_state_*.bin), so a resumed run
+            # continues it exactly
+            self.loader_shares = world_size()
+            if self.batch_size % self.loader_shares:
+                raise ValueError(f"loader: grain: batch_size "
+                                 f"{self.batch_size} over "
+                                 f"{self.loader_shares} ranks")
+            self.train_iter = make_grain_loader(
+                ImageFolderDataset(cfg["train_data"]),
+                self.batch_size // self.loader_shares,
+                shuffle=True, seed=self.seed,
+                num_workers=int(cfg.get("loader_workers", 8)))
         elif cfg.get("train_data"):
             self.train_loader = DataLoader(
                 ImageFolderDataset(cfg["train_data"]), self.batch_size,
@@ -260,14 +287,19 @@ class Trainer:
         (``MultiResolutionCrop.pick``; the size rounded down to a multiple
         of ``data x grad_accum``, at least one image per rank and
         micro-batch), then one random crop per image from a generator
-        seeded by the step."""
+        seeded by the step. Where the loader reads a share per rank
+        (``loader_shares`` > 1), ``batch`` is this rank's share and the
+        result its 1/shares of the global batch, cropped by a generator
+        seeded by the step and the rank."""
         res, scale = self.crop.pick(step)
         n_data = axis_size(self.mesh) * self.grad_accum
         bs = max(1, int(round(self.batch_size * scale)))
         bs = max(n_data, bs // n_data * n_data)
-        rng = np.random.default_rng(step)
+        shares = self.loader_shares
+        rng = np.random.default_rng(
+            step if shares == 1 else (step, axis_rank(self.mesh)))
         imgs = np.stack([random_crop(im, res, rng)
-                         for im in batch["image"][:bs]])
+                         for im in batch["image"][:bs // shares]])
         return {"image": torch.from_numpy(
             np.ascontiguousarray(imgs, np.float32)).to(self.device)}
 
@@ -284,10 +316,15 @@ class Trainer:
             raise ValueError("no training data: set train_data (an image "
                              "folder) or pass batches")
         image = self._prepare_batch(next(self.train_iter), step)["image"]
-        # the global batch's noise, then this rank's rows of both
-        noise = self.model.bit_noise(image, self.noise_generator(step))
-        rows = rank_rows(image.shape[0], self.mesh, self.grad_accum)
-        return self.step_fn(self.state, {"image": image[rows]},
+        # the global batch's noise, then this rank's rows of both (of the
+        # noise alone where the loader gave this rank its rows)
+        n = image.shape[0] * self.loader_shares
+        noise = self.model.bit_noise(image[:1].expand(n, -1, -1, -1),
+                                     self.noise_generator(step))
+        rows = rank_rows(n, self.mesh, self.grad_accum)
+        if self.loader_shares == 1:
+            image = image[rows]
+        return self.step_fn(self.state, {"image": image},
                             noise=noise[rows])
 
     # -- eval epoch ----------------------------------------------------------
@@ -363,12 +400,32 @@ class Trainer:
         tensors, meta = self.checkpoint_state()
         t0 = time.perf_counter()
         path = self.ckpt.save(tensors, step, metric, meta)
+        self._save_loader_state(step)
         if is_main_process():
             nbytes = sum(f.stat().st_size for f in path.iterdir())
             self.writer.log_dict({"bytes": nbytes,
                                   "save_s": time.perf_counter() - t0}, step,
                                  prefix="checkpoint")
         return path
+
+    # -- the worker loader's position (loader: grain) -------------------------
+
+    def _loader_state_path(self, step: int) -> Path:
+        return Path(self.ckpt.run_dir) / f"loader_state_{step:06d}.bin"
+
+    def _save_loader_state(self, step: int) -> None:
+        """The worker loader's position beside the checkpoint of ``step``,
+        on process 0 (each rank's stream is a function of the same
+        position), the oldest beyond ``max_checkpoint`` removed; the simple
+        loader needs none (``cycle(skip=)`` rebuilds its position from the
+        step)."""
+        get_state = getattr(self.train_iter, "get_state", None)
+        if get_state is None or not is_main_process():
+            return
+        self._loader_state_path(step).write_bytes(get_state())
+        states = sorted(Path(self.ckpt.run_dir).glob("loader_state_*.bin"))
+        while len(states) > self.ckpt.max_checkpoints:
+            states.pop(0).unlink()
 
     # -- main loop -----------------------------------------------------------
 
@@ -420,6 +477,16 @@ class Trainer:
             torch.cuda.synchronize(self.device)
         self.writer.log_dict({"restore_s": time.perf_counter() - t0},
                              restored, prefix="checkpoint")
+        set_state = getattr(self.train_iter, "set_state", None)
+        if set_state is not None:
+            path = self._loader_state_path(int(restored))
+            if path.exists():
+                set_state(path.read_bytes())
+                log.info("restored the loader's position at step %d",
+                         restored)
+            else:
+                log.warning("no loader state for step %d: the data stream "
+                            "restarts from its beginning", restored)
         self.state.step = int(meta["train_step"])
         opt = self.state.optimizer
         opt.count = int(meta[f"{opt.name}_count"])

@@ -135,7 +135,8 @@ def flat_jax_from_state_dict(state: Mapping[str, torch.Tensor],
     """A port state dict of convs, linears and norms -> the "/"-joined
     JAX tree, the inverse of ``convert_leaf``: a 4-d ``weight`` is an HWIO
     ``kernel``, a 2-d one an (in, out) ``kernel``, a 1-d one a norm's
-    ``scale``; biases as they are."""
+    ``scale``; biases, the Swin ``pos_embedding`` and the VQGAN's
+    ``embedding`` as they are."""
     out: Dict[str, np.ndarray] = {}
     for key, value in state.items():
         arr = value.detach().float().cpu().numpy()
@@ -149,7 +150,7 @@ def flat_jax_from_state_dict(state: Mapping[str, torch.Tensor],
                 leaf = "scale"
             else:
                 raise ValueError(f"{key}: weight of rank {arr.ndim}")
-        elif leaf != "bias":
+        elif leaf not in _AS_IS:
             raise ValueError(f"{key}: unknown leaf kind {leaf!r}")
         out[prefix + "/".join(mods + [leaf])] = np.ascontiguousarray(arr)
     return out

@@ -1,10 +1,10 @@
-"""Convert torch weight files into the metric networks' safetensors layouts.
+"""Convert torch weight files into the JAX package's safetensors layouts.
 
 JAX counterpart: ``onedc_tpu/utils/convert_weights.py`` (the
-``inception``, ``dists`` and ``lpips`` subcommands, :46-77). The files it
-writes have the JAX package's converted layout ("/"-joined keys, HWIO
-kernels), so a file written by either package loads in the other.
-Weights must arrive on disk; nothing is downloaded.
+``inception``, ``dists``, ``lpips``, ``onedc`` and ``guidance``
+subcommands). The files it writes have the JAX package's converted layout
+("/"-joined keys, HWIO kernels), so a file written by either package
+loads in the other. Weights must arrive on disk; nothing is downloaded.
 
   # pytorch-fid / torch-fidelity pt_inception-2015-12-05 state dict
   python -m onedc_tpu_torch.utils.convert_weights inception \\
@@ -18,6 +18,15 @@ Weights must arrive on disk; nothing is downloaded.
   python -m onedc_tpu_torch.utils.convert_weights lpips \\
       --vgg vgg16.pth --lins lpips_lins.pth --out lpips.safetensors
 
+  # the reference's OneDC release (model.safetensors, model_1.safetensors)
+  # [+ a diffusers SD2.1 VAE, a Codeformer] -> the OneDC tree, the
+  # inference CLI's ckpt= file; model.* overrides as in JAX
+  python -m onedc_tpu_torch.utils.convert_weights onedc \\
+      --unet model.safetensors --codec model_1.safetensors \\
+      [--vae vae.safetensors] [--codeformer cf.safetensors] \\
+      --out onedc.safetensors \\
+      [model.key=value ...] [seed=N device=cpu]
+
   # a stage-II SDGuidance state dict (model_2.safetensors) -> the
   # SDGuidance tree ("/"-joined, HWIO), guidance.* overrides as in JAX
   python -m onedc_tpu_torch.utils.convert_weights guidance \\
@@ -26,8 +35,12 @@ Weights must arrive on disk; nothing is downloaded.
 The guidance file holds what the source fills: ``fake_unet``, the head,
 and ``real_unet`` where the source carries it (JAX writes its initial
 values for a missing ``real_unet``; the port has no flax initialiser to
-draw them). The JAX package's ``onedc`` subcommand is not ported yet (the
-release layout loads directly: ``eval/inference.py`` ``checkpoint_path=``).
+draw them). The onedc file holds every tensor of the model: where no
+source fills one (the VAE of a release without ``--vae``), JAX writes its
+flax initial values, the port the inference CLI's seeded random weights
+(``seed``, default 0, drawn on ``device``, the card unless ``device=cpu``),
+so that ``ckpt=`` of the file decodes bit for bit as ``checkpoint_path=``
+of the release does under the same seed and device.
 """
 
 from __future__ import annotations
@@ -78,6 +91,36 @@ def convert_lpips(vgg, lins, out):
     save_safetensors(convert_torch_vgg16(vgg_state, lin_weights), out)
 
 
+def convert_onedc(unet, codec, vae, codeformer, out, overrides=()):
+    """``port_onedc_checkpoint`` of the given files onto a ``OneDC`` built
+    from the ``model.*`` overrides on the meta device, written in the JAX
+    tree's layout. Tensors no file fills: the seeded random weights of
+    ``eval/inference.py:load_params`` (``seed``, ``device``)."""
+    from ..config import parse_cli_overrides
+    from ..models.onedc import OneDC, init_random_weights
+    from .convert import flat_jax_from_state_dict
+    from .device import resolve_device
+    from .port_torch import port_onedc_checkpoint
+
+    cfg = parse_cli_overrides(overrides)
+    with torch.device("meta"):
+        model = OneDC(**dict(cfg.get("model", {})))
+    state = port_onedc_checkpoint(
+        unet_path=unet, codec_path=codec, vae_path=vae,
+        codeformer_path=codeformer, reference=model.state_dict())
+    unfilled = [k for k, v in state.items() if v.is_meta]
+    if unfilled:
+        device = resolve_device(cfg.get("device"))
+        model.to_empty(device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(cfg.get("seed", 0)))
+        init_random_weights(model, gen)
+        init = model.state_dict()
+        state.update({k: init[k] for k in unfilled})
+        del model, init
+    save_safetensors(flat_jax_from_state_dict(state), out)
+
+
 def convert_guidance(src, out, overrides=()):
     """``port_guidance_checkpoint`` of ``src`` onto an ``SDGuidance`` built
     from the ``guidance.*`` overrides (on the meta device: keys and shapes
@@ -113,12 +156,19 @@ def main(argv=None):
     s.add_argument("--lins", required=True)
     s.add_argument("--out", required=True)
 
+    s = sub.add_parser("onedc")
+    s.add_argument("--unet", default=None)
+    s.add_argument("--codec", default=None)
+    s.add_argument("--vae", default=None)
+    s.add_argument("--codeformer", default=None)
+    s.add_argument("--out", required=True)
+
     s = sub.add_parser("guidance")
     s.add_argument("--src", required=True)
     s.add_argument("--out", required=True)
 
     args, overrides = p.parse_known_args(argv)
-    if overrides and args.cmd != "guidance":
+    if overrides and args.cmd not in ("onedc", "guidance"):
         p.error(f"unrecognized arguments: {' '.join(overrides)}")
     if args.cmd == "inception":
         convert_inception(args.src, args.out)
@@ -126,6 +176,9 @@ def main(argv=None):
         convert_dists(args.vgg, args.dists, args.out)
     elif args.cmd == "lpips":
         convert_lpips(args.vgg, args.lins, args.out)
+    elif args.cmd == "onedc":
+        convert_onedc(args.unet, args.codec, args.vae, args.codeformer,
+                      args.out, overrides)
     elif args.cmd == "guidance":
         convert_guidance(args.src, args.out, overrides)
     print(f"wrote {args.out}")

@@ -1,8 +1,10 @@
 """The port stands alone: importing it (or chip_smoke.py) loads neither
-jax, flax, optax nor onedc_tpu, nor the safetensors, PIL and pandas packages
-that the card's machine lacks (PIL only inside the functions that read
-other formats than PNG); its entry points need the card unless told
-otherwise."""
+jax, flax, optax nor onedc_tpu, nor the safetensors, PIL, pandas, datasets,
+tensorboard, grain and wandb packages that the card's machine lacks (each
+only inside the functions that use it: PIL where a format other than PNG
+is read, datasets in ``CommonCanvasDataset`` and the fetch helper,
+tensorboard and wandb in the writers); its entry points need the card
+unless told otherwise."""
 
 import re
 import subprocess
@@ -16,7 +18,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "onedc_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "onedc_tpu")
 # not at module level: the card's machine has none of them
-ABSENT_ON_THE_CARD = ("safetensors", "PIL", "pandas")
+ABSENT_ON_THE_CARD = ("safetensors", "PIL", "pandas", "datasets",
+                      "tensorboard", "grain", "wandb")
 REACHED_MODULES = ("onedc_tpu_torch.entropy.bound", "onedc_tpu_torch.config",
                     "onedc_tpu_torch.data.crops",
                     "onedc_tpu_torch.train.losses",
@@ -58,7 +61,10 @@ REACHED_MODULES = ("onedc_tpu_torch.entropy.bound", "onedc_tpu_torch.config",
                     "onedc_tpu_torch.parallel.distributed",
                     "onedc_tpu_torch.parallel.mesh",
                     "onedc_tpu_torch.parallel.fsdp",
-                    "onedc_tpu_torch.parallel.spatial")
+                    "onedc_tpu_torch.parallel.spatial",
+                    "onedc_tpu_torch.entropy.factorized",
+                    "onedc_tpu_torch.entropy.huffman",
+                    "onedc_tpu_torch.data.fetch")
 
 
 def test_import_loads_no_jax_and_no_onedc_tpu():
@@ -92,7 +98,8 @@ def test_source_imports_nothing_of_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 20
     top_level = re.compile(
-        r"^(from|import)\s+(safetensors|PIL|pandas)(\.|\s|$)", re.M)
+        r"^(from|import)\s+(safetensors|PIL|pandas|datasets|tensorboard"
+        r"|grain|wandb)(\.|\s|$)", re.M)
     offenders = [str(f) for f in files if pattern.search(f.read_text())
                  or top_level.search(f.read_text())]
     assert offenders == []

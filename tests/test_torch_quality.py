@@ -189,7 +189,8 @@ def test_run_sweep_on_the_tiny_model(tmp_path, monkeypatch):
 def test_convert_weights_cli_writes_the_jax_packages_files(tmp_path):
     """The three subcommands on torch files (``torch.save``) write what
     the JAX package's CLI writes from the same files, tensor for tensor;
-    a subcommand the port lacks is refused."""
+    a subcommand neither package has is refused (``onedc``, which the
+    port lacked, is ported: ``test_torch_remainders.py``)."""
     rng = np.random.default_rng(12)
     vgg = {k: torch.from_numpy(v)
            for k, v in lpips.random_vgg16_state(rng).items()}
@@ -214,7 +215,7 @@ def test_convert_weights_cli_writes_the_jax_packages_files(tmp_path):
         for k in ref:
             assert np.array_equal(ref[k], got[k].numpy()), (args[0], k)
     with pytest.raises(SystemExit):
-        pcw.main(["onedc", "--out", str(tmp_path / "o.safetensors")])
+        pcw.main(["vqgan", "--out", str(tmp_path / "o.safetensors")])
 
 
 def test_metric_nets_need_the_card_unless_told(tmp_path):

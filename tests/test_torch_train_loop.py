@@ -13,6 +13,7 @@ drives the JAX loop: the JAX ``Trainer.__init__`` would jit the whole
 model's init.
 """
 
+import importlib.util
 import json
 import logging
 import os
@@ -330,15 +331,17 @@ def test_resume_equals_an_uninterrupted_run(tmp_path, data):
     3 in a fresh trainer: every parameter and AdamW moment bit for bit,
     the step and count. The uninterrupted run leaves the run directory:
     the config snapshot, the step-2 checkpoint and the best copy, the
-    metrics (train every step with ``sec_per_step``, eval at 2) and the
-    eval images."""
+    metrics (train every step with ``sec_per_step``, eval at 2), the eval
+    images and the TensorBoard events."""
     whole = tmp_path / "whole"
     want, want_meta = _state(ptrainer.main(
         _main_argv(whole, data, "total_steps=3")))
     assert want_meta == {"train_step": "3", "adamw_count": "3"}
-    assert sorted(os.listdir(whole)) == [
+    # TensorBoard events under tb where the tensorboard package imports
+    tb = ["tb"] if importlib.util.find_spec("tensorboard") else []
+    assert sorted(os.listdir(whole)) == sorted([
         "checkpoint_model_000002", "checkpoints_best", "config.json",
-        "config.yaml", "images", "metrics.jsonl"]
+        "config.yaml", "images", "metrics.jsonl"] + tb)
     assert sorted(os.listdir(whole / "images")) == [
         "eval_gt_000002.png", "eval_recon_000002.png"]
     rows = read_metrics(whole)
@@ -399,24 +402,19 @@ def test_resume_overrides(tmp_path):
             tr3.model, tr3.frozen)[0]]
 
 
-@pytest.mark.parametrize("key,value", [
-    ("fsdp", True), ("multihost", True), ("loader", "grain")])
+@pytest.mark.parametrize("key,value", [("fsdp", True), ("multihost", True)])
 def test_unported_options_raise(tmp_path, key, value):
-    """The option the port does not run (``loader: grain``) raises, naming
-    it; ``fsdp`` and ``multihost``, which used to raise here, are ported:
-    in one process ``fsdp`` shards the trainable parameters over a mesh of
+    """``fsdp`` and ``multihost``, which used to raise here, are ported: in
+    one process ``fsdp`` shards the trainable parameters over a mesh of
     one (``parallel/fsdp.py``; the group is left as found), and
     ``multihost`` builds the trainer as without it (torchrun's environment,
-    absent here, is what joins processes)."""
+    absent here, is what joins processes). ``loader: grain``, the last
+    option that raised, is ported too (``test_torch_worker_loader.py``)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     cfg = {"model": dict(TINY), "allow_no_lpips": True,
            "run_dir": str(tmp_path / "run"), key: value}
-    if key == "loader":
-        with pytest.raises(NotImplementedError, match="grain"):
-            ptrainer.Trainer(cfg, device="cpu")
-        return
     assert not dist.is_initialized()
     try:
         tr = ptrainer.Trainer(cfg, device="cpu")

@@ -169,6 +169,26 @@ def train_scenarios(rank: int, steps: dict, ckpt: dict) -> dict:
     return out if rank == 0 else {"rank": rank}
 
 
+def grain_epoch(rank: int, cfg: dict) -> list:
+    """One epoch of ``loader: grain`` through ``Trainer.train_one_step``,
+    its step function replaced by a recorder: per step, the (image, noise)
+    this rank would train."""
+    from onedc_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, device="cpu")
+    seen = []
+
+    def record(state, batch, noise):
+        seen.append((batch["image"].numpy().copy(), noise.numpy().copy()))
+        return {}
+
+    tr.step_fn = record
+    for step in range(tr.train_iter.batches_per_epoch):
+        tr.train_one_step(step)
+    tr.train_iter.close()
+    return seen
+
+
 def stage2_runs(rank: int, argvs: list) -> list:
     """``stage2_run`` of each argv in turn."""
     return [stage2_run(rank, argv) for argv in argvs]
