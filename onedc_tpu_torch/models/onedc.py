@@ -45,7 +45,6 @@ entry point its images in ``decode_padded``, the two pinned methods.
 from __future__ import annotations
 
 import os
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,6 +63,7 @@ from ..parallel.mesh import gather_objects, gather_rows, rank_rows, \
     real_rows
 from ..serving.encoder import pad_replicate
 from ..serving.pipeline import DecodePrograms, pipelined_decode
+from ..utils import spans
 from ..utils.device import resolve_device  # noqa: F401  (re-exported)
 from ..utils.numerics import pinned
 from ..utils.remat import rematerialized
@@ -263,6 +263,24 @@ class OneDC(nn.Module):
     def decode_device(self, y_hat, z_semantic):
         """NHWC y_hat + z_semantic -> image, NCHW."""
         return self.decode_device_vae(self.decode_device_x0(y_hat, z_semantic))
+
+
+# the stages of a traced ``decode_padded`` and the span that ends each
+STAGE_SPANS = (("begin", "chunk.begin"), ("updates_with_rans", "chunk.update"),
+               ("finish_unet_x0", "chunk.x0"), ("vae", "chunk.vae"))
+
+
+def _stage_ms(rec: spans.Record, call: spans.Span) -> Dict[str, float]:
+    """The host ms of each stage of a traced ``decode_padded`` call: from
+    the end of the previous stage's last span (the call's start for the
+    first) to the end of the stage's last span."""
+    kids = rec.children(call)
+    out, last = {}, call.start
+    for stage, name in STAGE_SPANS:
+        end = max(s.end for s in kids if s.name == name)
+        out[stage] = (end - last) / 1e6
+        last = end
+    return out
 
 
 class OneDCRuntime:
@@ -480,46 +498,46 @@ class OneDCRuntime:
         codec-finish + UNet + VAE pass (z-only: one batched z-only decode).
         ``trace``, if given (lambda model), receives the host (indexes,
         symbols) of each step under "steps", the decoded latent under
-        "y_hat", and the host ms of each stage under "stage_ms": "begin"
-        (z unpack, codec begin), "updates_with_rans" (4 x host rANS and
-        update), "finish_unet_x0" and "vae". A traced decode waits for the
-        device at the end of each stage."""
-        stage_done = self._stage_clock(trace)
-        z = np.concatenate([self.z_indices(d) for d in decs])
-        if self.z_only:
-            image = self.quantized(self.decode_z_only)(
-                torch.from_numpy(z).to(self.device), self.use_large_vae)
-            return nhwc(image).float()
-        rt = self._codec_rt
-        coders = rt.make_stream_coders([d["bit_stream_y"] for d in decs])
-        steps = trace.setdefault("steps", []) if trace is not None else None
-        y_hat, z_semantic = rt.run_four_part_decode(z, coders, steps,
-                                                    stage_done)
-        x0 = self.quantized(self.decode_x0)(y_hat, z_semantic)
+        "y_hat", and the host ms of each stage under "stage_ms", read from
+        the call's spans (``utils/spans.py``): "begin" (z unpack, codec
+        begin), "updates_with_rans" (4 x host rANS and update),
+        "finish_unet_x0" and "vae". A traced decode waits for the device at
+        the end of each stage."""
+        settle = None
         if trace is not None:
-            trace["y_hat"] = y_hat
-            stage_done("finish_unet_x0")
-        image = self.quantized(self.decode_vae)(x0, self.use_large_vae)
-        if trace is not None:
-            stage_done("vae")
-        return nhwc(image).float()
-
-    def _stage_clock(self, trace: Optional[dict]):
-        """None, or a function that records under trace["stage_ms"] the
-        host ms since its previous call (or since this one) once the device
-        is done."""
-        if trace is None:
-            return None
-        stage_ms = trace["stage_ms"] = {}
-        last = [time.perf_counter()]
-
-        def stage_done(stage: str):
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            now = time.perf_counter()
-            stage_ms[stage] = (now - last[0]) * 1e3
-            last[0] = now
-        return stage_done
+            def settle():
+                if self.device.type == "cuda":
+                    with spans.span("wait.device"):
+                        torch.cuda.synchronize(self.device)
+        with spans.call("decode_padded") as call:
+            if self.z_only:
+                with spans.span("z_only"):
+                    z = np.concatenate([self.z_indices(d) for d in decs])
+                    with spans.span("wait.device"):
+                        z = torch.from_numpy(z).to(self.device)
+                    return nhwc(self.quantized(self.decode_z_only)(
+                        z, self.use_large_vae)).float()
+            z = np.concatenate([self.z_indices(d) for d in decs])
+            rt = self._codec_rt
+            coders = rt.make_stream_coders([d["bit_stream_y"] for d in decs])
+            steps = trace.setdefault("steps", []) if trace is not None \
+                else None
+            y_hat, z_semantic = rt.run_four_part_decode(z, coders, steps,
+                                                        settle)
+            with spans.span("chunk.x0"):
+                x0 = self.quantized(self.decode_x0)(y_hat, z_semantic)
+                if settle is not None:
+                    settle()
+            with spans.span("chunk.vae"):
+                image = self.quantized(self.decode_vae)(x0,
+                                                        self.use_large_vae)
+                if settle is not None:
+                    settle()
+            image = nhwc(image).float()
+            if trace is not None:
+                trace["y_hat"] = y_hat
+                trace["stage_ms"] = _stage_ms(spans.open_record(), call)
+        return image
 
     @staticmethod
     def _unpad(pred: torch.Tensor, dec: dict) -> torch.Tensor:
@@ -549,24 +567,34 @@ class OneDCRuntime:
         ``mesh``, each data rank decodes its rows of each bucket (padded
         to the axis by repeating the last stream) and every rank returns
         all N images, all-gathered."""
-        decs = [self.parse(s) for s in streams]
-        buckets: Dict[Tuple[int, int], List[int]] = {}
-        for i, d in enumerate(decs):
-            buckets.setdefault((d["pad_height"], d["pad_width"]),
-                               []).append(i)
-        out: List[Optional[torch.Tensor]] = [None] * len(decs)
-        for (ph, pw), idxs in buckets.items():
-            bucket = [decs[idxs[r]] for r in rank_rows(len(idxs), mesh)]
-            if self.z_only or len(bucket) == 1:
-                chunk = int(os.environ.get("ONEDC_PIPELINE_CHUNK", "8"))
-                preds = torch.cat([self.decode_padded(bucket[c0:c0 + chunk])
-                                   for c0 in range(0, len(bucket), chunk)])
-            else:
-                preds = nhwc(self._decode_pipelined(
-                    bucket, ph // self.ds, pw // self.ds)).float()
-            preds = gather_rows(preds, mesh, len(idxs))
-            for row, i in enumerate(idxs):
-                out[i] = self._unpad(preds[row:row + 1], decs[i])
+        with spans.call("decode_batch", images=len(streams)):
+            with spans.span("parse"):
+                decs = [self.parse(s) for s in streams]
+            buckets: Dict[Tuple[int, int], List[int]] = {}
+            for i, d in enumerate(decs):
+                buckets.setdefault((d["pad_height"], d["pad_width"]),
+                                   []).append(i)
+            out: List[Optional[torch.Tensor]] = [None] * len(decs)
+            for (ph, pw), idxs in buckets.items():
+                with spans.span("bucket"):
+                    bucket = [decs[idxs[r]]
+                              for r in rank_rows(len(idxs), mesh)]
+                    single = self.z_only or len(bucket) == 1
+                    if single:
+                        chunk = int(os.environ.get("ONEDC_PIPELINE_CHUNK",
+                                                   "8"))
+                        parts = [self.decode_padded(bucket[c0:c0 + chunk])
+                                 for c0 in range(0, len(bucket), chunk)]
+                    else:
+                        pipelined = self._decode_pipelined(
+                            bucket, ph // self.ds, pw // self.ds)
+                    with spans.span("stitch"):
+                        preds = (torch.cat(parts) if single
+                                 else nhwc(pipelined).float())
+                        preds = gather_rows(preds, mesh, len(idxs))
+                        for row, i in enumerate(idxs):
+                            out[i] = self._unpad(preds[row:row + 1],
+                                                 decs[i])
         return out
 
     def decode_programs(self) -> DecodePrograms:

@@ -31,6 +31,7 @@ from ..entropy.framing import decode_i, read_from_file
 from ..entropy.gaussian import GaussianConditionalCoder, make_stream_coders
 from ..serving.encoder import frame_container, write_container
 from ..serving.pipeline import narrow_symbols, upload
+from ..utils import spans
 from .codec import LatentCodec
 
 
@@ -143,30 +144,37 @@ class CodecRuntime:
     @torch.no_grad()
     def run_four_part_decode(self, z_indices: np.ndarray,
                              coders: List[GaussianConditionalCoder],
-                             trace=None, stage_done=None):
+                             trace=None, settle=None):
         """z indices (B, h, w) and one coder per row -> (y_hat, z_semantic),
         both NHWC. ``trace``, if given, is a list that receives the
         host-side (indexes, symbols) of every step, row-stacked;
-        ``stage_done``, if given, is called with "begin" after the codec
-        begin and with "updates_with_rans" after the 4 steps."""
+        ``settle``, if given, is called at the end of the ``chunk.begin``
+        span and of the last ``chunk.update`` span (a traced decode waits
+        there for the device)."""
         n = len(coders)
         if z_indices.shape[0] != n:
             raise ValueError(f"{z_indices.shape[0]} z rows, {n} coders")
-        st = decode_begin(self.codec, upload(z_indices, self.device))
-        if stage_done is not None:
-            stage_done("begin")
+        with spans.span("chunk.begin"):
+            st = decode_begin(self.codec, upload(z_indices, self.device))
+            if settle is not None:
+                settle()
         for step in range(4):
-            idx = st["indexes_r"].cpu().numpy()
-            if n == 1:
-                parts = coders[0].decode_stream_with_indexes(idx)
-            else:
-                parts = GaussianConditionalCoder.decode_streams_with_indexes(
-                    coders, idx.reshape(n, -1)).reshape(idx.shape)
+            with spans.span("wait.device"):
+                idx = st["indexes_r"].cpu().numpy()
+            with spans.span("rans.decode"):
+                if n == 1:
+                    parts = coders[0].decode_stream_with_indexes(idx)
+                else:
+                    parts = GaussianConditionalCoder \
+                        .decode_streams_with_indexes(
+                            coders, idx.reshape(n, -1)).reshape(idx.shape)
             if trace is not None:
                 trace.append((idx, parts))
-            st.update(decode_update(
-                self.codec, step, upload(narrow_symbols(parts), self.device),
-                st["means"], st["y_hat"], st["common"]))
-        if stage_done is not None:
-            stage_done("updates_with_rans")
+            with spans.span("chunk.update"):
+                st.update(decode_update(
+                    self.codec, step,
+                    upload(narrow_symbols(parts), self.device),
+                    st["means"], st["y_hat"], st["common"]))
+                if step == 3 and settle is not None:
+                    settle()
         return st["y_hat"], st["z_semantic"]

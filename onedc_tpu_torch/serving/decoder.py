@@ -21,6 +21,7 @@ from ..entropy.coder import EntropyCoder
 from ..entropy.framing import decode_i
 from ..entropy.gaussian import GaussianConditionalCoder, make_stream_coders
 from ..nn.fsq import FSQ  # stateless host bit-packing only
+from ..utils import spans
 from ..utils.numerics import pinned
 from .bundle import Bundle
 from .pipeline import DecodePrograms, pipelined_decode
@@ -67,26 +68,32 @@ class ServingDecoder:
         """Containers -> list of (1, H, W, 3) f32 images in input order.
         Every stream must pad to the bundle's bucket; the exported batch is
         fixed, so a ragged chunk pads up to it (padding rows decode zero
-        symbols and are trimmed)."""
+        symbols and are trimmed). Its spans (``utils/spans.py``) are a
+        record of their own, as ``OneDCRuntime.decode_batch``'s."""
         b = self.bundle
-        decs = [decode_i(s, self.fsq.index_bits, b.ds) for s in streams]
-        for d in decs:
-            if (d["pad_height"], d["pad_width"]) != (b.pad_h, b.pad_w):
-                raise ValueError(
-                    f"stream pads to {d['pad_height']}x{d['pad_width']}, "
-                    f"bundle bucket is {b.pad_h}x{b.pad_w}")
-        zh, zw = b.pad_h // b.ds, b.pad_w // b.ds
-        preds = pipelined_decode(
-            self._programs(),
-            lambda ys: make_stream_coders(self._coder, ys),
-            lambda data: self.fsq.unpack_indices(data, zh * zw),
-            decs, zh, zw, b.device,
-            mult=b.batch, chunk=b.batch, vae_chunk=b.batch,
-            **({} if self._has_i8 else {"narrow": lambda parts: parts}))
-        out = []
-        for i, d in enumerate(decs):
-            pl, pr, pt, pb = d["pad_tuple"]
-            h, w = b.pad_h - pt - pb, b.pad_w - pl - pr
-            out.append(preds[i:i + 1, :, pt:pt + h, pl:pl + w]
-                       .permute(0, 2, 3, 1).float())
+        with spans.call("decode_batch", images=len(streams)):
+            with spans.span("parse"):
+                decs = [decode_i(s, self.fsq.index_bits, b.ds)
+                        for s in streams]
+            for d in decs:
+                if (d["pad_height"], d["pad_width"]) != (b.pad_h, b.pad_w):
+                    raise ValueError(
+                        f"stream pads to {d['pad_height']}x"
+                        f"{d['pad_width']}, bundle bucket is "
+                        f"{b.pad_h}x{b.pad_w}")
+            zh, zw = b.pad_h // b.ds, b.pad_w // b.ds
+            preds = pipelined_decode(
+                self._programs(),
+                lambda ys: make_stream_coders(self._coder, ys),
+                lambda data: self.fsq.unpack_indices(data, zh * zw),
+                decs, zh, zw, b.device,
+                mult=b.batch, chunk=b.batch, vae_chunk=b.batch,
+                **({} if self._has_i8 else {"narrow": lambda parts: parts}))
+            out = []
+            with spans.span("stitch"):
+                for i, d in enumerate(decs):
+                    pl, pr, pt, pb = d["pad_tuple"]
+                    h, w = b.pad_h - pt - pb, b.pad_w - pl - pr
+                    out.append(preds[i:i + 1, :, pt:pt + h, pl:pl + w]
+                               .permute(0, 2, 3, 1).float())
         return out

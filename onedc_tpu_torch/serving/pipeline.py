@@ -20,6 +20,12 @@ is issued by the calling thread, on its current stream: the workers only
 wait, run the native rANS decode (a ctypes call, which releases the GIL)
 and narrow the symbols. Uploads go through pinned memory without blocking.
 
+Spans (``utils/spans.py``) mark each boundary: on the calling thread the
+dispatch of each stage (``chunk.begin``, ``chunk.update``, ``chunk.x0``,
+``chunk.vae``, with ``upload`` and ``fetch`` inside), the waits for a
+worker (``wait.rans``) and the final ``stitch``; on a worker
+``rans.decode``, naming the chunk span that submitted it.
+
 The loop is parameterised over the device programs, so the same schedule
 drives the live runtime (``models/onedc.py:OneDCRuntime.decode_batch``)
 and the model-code-free bundle decoder (``serving/decoder.py``).
@@ -35,6 +41,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..utils import spans
 
 
 class DecodePrograms(NamedTuple):
@@ -76,10 +84,11 @@ def _pad_rows(arr: np.ndarray, multiple: int) -> np.ndarray:
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``: on the card through pinned memory,
     queued on the current stream without blocking the host."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
+    with spans.span("upload"):
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if device.type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
 
 
 def start_fetch(t: torch.Tensor) -> Callable[[], np.ndarray]:
@@ -88,10 +97,11 @@ def start_fetch(t: torch.Tensor) -> Callable[[], np.ndarray]:
     gives the array. Call the function from any thread."""
     if t.device.type != "cuda":
         return lambda: t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+    with spans.span("fetch"):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
 
     def wait():
         done.synchronize()
@@ -111,28 +121,31 @@ class _ChunkSM:
 
     def __init__(sm, sched, ci, cd, workers):
         sm.sched, sm.ci, sm.workers, sm.n = sched, ci, workers, len(cd)
-        z_indices = _pad_rows(np.stack([
-            np.asarray(sched.unpack_z(d["bit_stream_z"])).reshape(
-                sched.zh, sched.zw) for d in cd]), sched.mult)
-        sm.n_rows = z_indices.shape[0]
-        sm.coders = sched.make_coders([d["bit_stream_y"] for d in cd])
-        st = sched.programs.begin(upload(z_indices, sched.device))
-        sm.y_hat, sm.means = st["y_hat"], st["means"]
-        sm.common, sm.z_semantic = st["common"], st["z_semantic"]
-        sm.step = 0
-        sm._issue(st["indexes_r"])
+        with spans.span("chunk.begin"):
+            z_indices = _pad_rows(np.stack([
+                np.asarray(sched.unpack_z(d["bit_stream_z"])).reshape(
+                    sched.zh, sched.zw) for d in cd]), sched.mult)
+            sm.n_rows = z_indices.shape[0]
+            sm.coders = sched.make_coders([d["bit_stream_y"] for d in cd])
+            st = sched.programs.begin(upload(z_indices, sched.device))
+            sm.y_hat, sm.means = st["y_hat"], st["means"]
+            sm.common, sm.z_semantic = st["common"], st["z_semantic"]
+            sm.step = 0
+            sm._issue(st["indexes_r"])
 
     def _issue(sm, idx_dev):
         fetch = start_fetch(idx_dev)
         coders, n, n_rows, narrow = (sm.coders, sm.n, sm.n_rows,
                                      sm.sched.narrow)
+        cause = spans.here()
 
         def work():
             idx = fetch()
             # one native call decodes the whole chunk's streams; padding
             # rows (no coder) get zero symbols
-            parts = type(coders[0]).decode_streams_with_indexes(
-                coders, idx[:n].reshape(n, -1)).reshape(idx[:n].shape)
+            with spans.span("rans.decode", parent=cause):
+                parts = type(coders[0]).decode_streams_with_indexes(
+                    coders, idx[:n].reshape(n, -1)).reshape(idx[:n].shape)
             if n_rows > n:
                 parts = np.concatenate(
                     [parts, np.zeros_like(idx[n:], dtype=parts.dtype)])
@@ -146,14 +159,17 @@ class _ChunkSM:
     def advance(sm):
         """Run one prior step; True while more steps remain."""
         sched = sm.sched
-        parts = upload(sm.fut.result(), sched.device)
-        nxt = sched.programs.update[sm.step](parts, sm.means, sm.y_hat,
-                                             sm.common)
-        sm.y_hat, sm.means = nxt["y_hat"], nxt["means"]
-        sm.step += 1
-        if sm.step < 4:
-            sm._issue(nxt["indexes_r"])
-            return True
+        with spans.span("wait.rans"):
+            symbols = sm.fut.result()
+        with spans.span("chunk.update"):
+            parts = upload(symbols, sched.device)
+            nxt = sched.programs.update[sm.step](parts, sm.means, sm.y_hat,
+                                                 sm.common)
+            sm.y_hat, sm.means = nxt["y_hat"], nxt["means"]
+            sm.step += 1
+            if sm.step < 4:
+                sm._issue(nxt["indexes_r"])
+                return True
         sched.pending.append(sched.mk_x0(sm.ci, sm.y_hat, sm.z_semantic))
         bounds = list(range(0, sm.n_rows, sched.vae_chunk))
         for pi, lo in enumerate(bounds):
@@ -204,18 +220,20 @@ def pipelined_decode(programs: DecodePrograms, make_coders, unpack_z,
 
     def mk_x0(ci, y_hat, z_sem):
         def f():
-            x0s[ci] = programs.x0(y_hat, z_sem)
+            with spans.span("chunk.x0"):
+                x0s[ci] = programs.x0(y_hat, z_sem)
         return f
 
     def mk_vae(ci, pi, lo, hi, nparts):
         def f():
-            part = programs.vae(x0s[ci][lo:hi])
-            vae_parts.setdefault(ci, {})[pi] = part
-            if len(vae_parts[ci]) == nparts:
-                parts = vae_parts.pop(ci)
-                x0s.pop(ci)
-                outs[ci] = (parts[0] if nparts == 1 else
-                            torch.cat([parts[i] for i in range(nparts)]))
+            with spans.span("chunk.vae"):
+                part = programs.vae(x0s[ci][lo:hi])
+                vae_parts.setdefault(ci, {})[pi] = part
+                if len(vae_parts[ci]) == nparts:
+                    parts = vae_parts.pop(ci)
+                    x0s.pop(ci)
+                    outs[ci] = (parts[0] if nparts == 1 else
+                                torch.cat([parts[i] for i in range(nparts)]))
         return f
 
     sched = SimpleNamespace(
@@ -250,5 +268,6 @@ def pipelined_decode(programs: DecodePrograms, make_coders, unpack_z,
         while pending:
             pending.popleft()()
     # trim each chunk's padding rows before stitching
-    return torch.cat([outs[ci][:len(chunks[ci])]
-                      for ci in range(len(chunks))])
+    with spans.span("stitch"):
+        return torch.cat([outs[ci][:len(chunks[ci])]
+                          for ci in range(len(chunks))])
